@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA receiver (gps_sdr_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile-vt]
 
-Three phases, each printing one line of evidence:
+Phases, each printing one line of evidence:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   the tracking kernel built from gps_sdr_tpu_torch/csrc/ into build/.
-2. Kernel against plain on the card, at the main path's shape (58 MHz,
-   8 channels): 1000 E/P/L blocks and 300 blocks of the 25-tap bank
-   through the CUDA kernel and through its plain PyTorch version on the
-   same inputs, plus a 77 ms chunk-chaining run, with the bounds of
-   tests/test_pallas_fused.py; per-chunk times of both.
+   both kernels (track_chunk.cu, corr_bank.cu) built together from
+   gps_sdr_tpu_torch/csrc/ into build/.
+2. Kernels against their plain PyTorch versions on the card, at the main
+   path's shape (58 MHz, 8 channels), on the same inputs:
+   - track_chunk: 1000 E/P/L blocks and 300 blocks of the 25-tap bank, plus
+     a 77 ms chunk-chaining run, with the bounds of
+     tests/test_pallas_fused.py; per-chunk times of both;
+   - correlator_bank: one block at 3 taps and at the 29-tap VT grid, with
+     and without DC removal, from the NCO state the tracker reached and
+     from states spread over code phase, carrier frequency and block
+     length; the fault flag for a window past the chunk; times of the
+     kernel (as split over CTAs and on one CTA per channel), of the plain
+     version and of an empty launch.
 3. The main path: a 41 s, 58 MHz int8 capture of 8 SVs (transmit-time
    geometry + atmosphere, the repo's e2e workload) synthesized on the card
    into host memory, then Receiver.acquisition → track_for_eph(39800) →
-   decode(1000) → usable_svs → ct_position(3000), with the kernel's
-   launches counted.
+   decode(1000) → usable_svs → ct_position(3000) → vt_position(1000), with
+   both kernels' launches counted.
 
-Then one JSON line on the kernel, and as the last line
+Then one JSON line on the kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (exit code ≠ 0).
+With --profile-vt, phase 3 also traces 100 ms of vector tracking with
+torch.profiler and prints where the host and the card spend it.
 """
 
 from __future__ import annotations
@@ -45,8 +54,11 @@ from gps_sdr_tpu_torch.io.ifdata import DeviceStager, IFSampleSource
 from gps_sdr_tpu_torch.io.synthetic import (GeometrySignal, GeometrySV,
                                             SyntheticSV, generate_if_samples,
                                             quantize_iq)
+from gps_sdr_tpu_torch.ops import _build
+from gps_sdr_tpu_torch.ops import corr_bank as cb
 from gps_sdr_tpu_torch.ops import track_chunk as tc
 from gps_sdr_tpu_torch.pipeline import Receiver
+from gps_sdr_tpu_torch.receiver.vt import VTParams
 from gps_sdr_tpu_torch.tracking import (TrackParams, chip_tables,
                                         init_track_state, run_tracking)
 
@@ -55,7 +67,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # ---- the repo's e2e workload (bench.py:353-419, tests/scenario.py) ----
 FS, F_IF = 58e6, 4.58e6
 CAPTURE_MS = 41000
-EPH_MS, DECODE_OFFSET_MS, CT_MS = 39800, 1000, 3000
+EPH_MS, DECODE_OFFSET_MS, CT_MS, VT_MS = 39800, 1000, 3000, 1000
+VT_SETTLE_MS = 500                      # VT gates read rows from here on
 PRNS = (3, 7, 16, 22, 27, 1, 8, 30)
 AMPS = (3.0, 2.6, 2.8, 2.4, 2.7, 2.2, 3.2, 2.0)
 AMP_SCALE = 0.09
@@ -75,6 +88,18 @@ WLS_GATE_M = 120.0                      # bench.py:470
 
 # kernel-against-plain bounds (tests/test_pallas_fused.py)
 BOUNDS = dict(rem_chip=2e-4, corr_rel=2e-3, freq_hz=0.05, phase_rad=0.02)
+# correlator_bank against its plain version: largest difference over the
+# mean prompt magnitude of the tracked state (both sum exact products in
+# float64, so they differ at most where a sum rounds to float32)
+BANK_BOUND_REL = 1e-6
+
+# published peaks of one H100 SXM (dense): device memory and float32
+# outside the tensor cores, which is what both kernels compute in
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# float32 operations per sample and channel: phasor product 6, mix 6, and
+# per tap 2 products + 2 sums; DC removal adds 2 sums + 2 differences
+OPS_PER_SAMPLE, OPS_PER_TAP, OPS_DC = 12, 4, 4
 
 
 def cfg_e2e() -> ReceiverConfig:
@@ -98,7 +123,7 @@ def visible_constellation(n_sv: int, min_el_deg: float = 20.0):
     for om, m0 in candidates:
         eph = dict(BASE_EPH, omega0=float(om), m0=float(m0),
                    af0=float(rng.uniform(-2e-4, 2e-4)))
-        pos = sv_pos_vel_clock(Ephemeris.stack([eph]), [TOW0])["pos"][0]
+        pos = sv_pos_vel_clock(Ephemeris.stack([eph], "cpu"), [TOW0])["pos"][0]
         los = pos.numpy() - usr
         up = usr / np.linalg.norm(usr)
         el = np.rad2deg(np.arcsin(np.dot(los, up) / np.linalg.norm(los)))
@@ -134,6 +159,18 @@ def timed_ms(fn, repeat: int) -> float:
     return start.elapsed_time(end) / repeat
 
 
+def timed_graph_ms(fn, repeat: int, launches: int = 20) -> float:
+    """Mean device time of fn(): `launches` calls captured in one CUDA
+    graph, replayed `repeat` times.  Without the host's per-call work (the
+    wrapper's checks and allocations), which `timed_ms` includes."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    return timed_ms(graph.replay, repeat) / launches
+
+
 def compare(out, ref) -> dict:
     """Maxima of kernel − plain over two record dicts; raises past BOUNDS."""
     diff = (out["num_sample"] != ref["num_sample"]).nonzero()
@@ -162,24 +199,53 @@ def compare(out, ref) -> dict:
     return m
 
 
-def phase_device_and_build() -> tuple:
+def bound_ms(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and float32 operations over the peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(n_bytes), bound_operations=int(n_ops))
+
+
+def union_samples(start: torch.Tensor, stop: torch.Tensor) -> int:
+    """Samples covered by the union of the windows [start, stop)."""
+    total, reach = 0, None
+    for a, b in sorted(zip(start.tolist(), stop.tolist())):
+        if reach is None or a > reach:
+            total, reach = total + (b - a), b
+        elif b > reach:
+            total, reach = total + (b - reach), b
+    return total
+
+
+def phase_device_and_build() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    path, log, secs = tc.build_library()
+    t0 = time.perf_counter()
+    built = _build.build_all(["track_chunk", "corr_bank"])
+    wall = time.perf_counter() - t0
     tc.load_library()
-    ptxas = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
-             if "Used" in ln and "registers" in ln]
-    evidence("build", library=os.path.relpath(path, ROOT),
-             build_s=round(secs, 3), ptxas=ptxas)
+    cb.load_library()
+    evidence("build", wall_s=round(wall, 3), libraries={
+        name: dict(library=os.path.relpath(path, ROOT),
+                   build_s=round(secs, 3),
+                   ptxas=[ln.split(":", 1)[1].strip()
+                          for ln in log.splitlines()
+                          if "Used" in ln and "registers" in ln])
+        for name, (path, log, secs) in built.items()})
     return smi
 
 
-def phase_kernel_vs_plain(dev: torch.device) -> dict:
-    """The kernel and its plain version on the same chunk at the e2e
-    shape; simple-dynamics signals of the 8 e2e PRNs at their powers."""
+def phase_kernel_vs_plain(dev: torch.device) -> tuple:
+    """The tracking kernel and its plain version on the same chunk at the
+    e2e shape; simple-dynamics signals of the 8 e2e PRNs at their powers.
+    Returns (measurements, what the bank phase reuses: the capture, the
+    code tables and the state after the 1000 E/P/L blocks)."""
     cfg = cfg_e2e()
     S = cfg.signal.samples_per_ms
     rng = np.random.default_rng(3)
@@ -209,7 +275,7 @@ def phase_kernel_vs_plain(dev: torch.device) -> dict:
         start = int(state.ptr.min())
         length = int(state.ptr.max()) - start + spec.chunk_samples(n_steps)
         raw = stager.stage(src.read_iq_values(start, length))
-        out, _ = tc.track_chunk(raw, start, state, chips, spec, n_steps)
+        out, end = tc.track_chunk(raw, start, state, chips, spec, n_steps)
         ref, _ = tc.track_chunk_reference(raw, start, state, chips, spec,
                                           n_steps)
         tc.raise_on_fault(out)
@@ -220,7 +286,19 @@ def phase_kernel_vs_plain(dev: torch.device) -> dict:
         m["plain_ms"] = timed_ms(lambda: tc.track_chunk_reference(
             raw, start, state, chips, spec, n_steps), 1)
         m["blocks"] = n_steps
+        # bound: the chunk's samples once (the union of all block windows),
+        # the code tables, the records and state written once
+        stops = out["absolute_sample"]
+        n_out = sum(out[f].numel() * out[f].element_size() for f in out)
+        m.update(bound_ms(
+            union_samples(state.ptr, stops[-1]) * raw.element_size() * 2
+            + chips.numel() * 4 + n_out,
+            int(out["num_sample"].sum()) * (
+                OPS_PER_SAMPLE + OPS_PER_TAP * len(spec.taps)
+                + OPS_DC * spec.remove_dc)))
         res[kind] = m
+        if kind == "epl":
+            tracked = end
     # chunk chaining: 77 ms chunks against one 1000 ms chunk, both kernel
     params = TrackParams.epl(cfg)
     one, _ = run_tracking(src, cfg, PRNS,
@@ -240,10 +318,172 @@ def phase_kernel_vs_plain(dev: torch.device) -> dict:
                                  "rem_chip", "rem_phase"))
     res["chain77"] = m
     evidence("kernel_vs_plain", bounds=BOUNDS, **res)
+    return res, dict(cfg=cfg, src=src, chips=chips, stager=stager,
+                     tracked=tracked)
+
+
+def _bank_case(raw, start, nco, chips, taps, blk, remove_dc, scale):
+    """One comparison: kernel (default split and one CTA per channel)
+    against plain on the same inputs; raises past the bound."""
+    dev = raw.device
+    tap_fp = cb.tap_offsets_fp(taps, dev)
+    args = (raw, nco["ptr"] - start, nco["rem_chip"], nco["code_freq"],
+            nco["phase_fp"], nco["carr_fp"], nco["num"], chips, tap_fp, FS,
+            blk, remove_dc)
+    out, fault = cb.correlator_bank(*args)
+    one, fault1 = cb.correlator_bank(*args, n_split=1)
+    ref, fault_ref = cb.correlator_bank_reference(*args)
+    for f in (fault, fault1, fault_ref):
+        cb.raise_on_fault(f)
+    err = max(float((out - ref).abs().max()), float((one - ref).abs().max()))
+    m = dict(max_abs_err=err, bitwise=bool(torch.equal(out, ref)
+                                           and torch.equal(one, ref)),
+             finite=bool(torch.isfinite(out).all()))
+    if not m["finite"] or err > BANK_BOUND_REL * scale:
+        raise AssertionError(f"correlator_bank against plain out of bounds "
+                             f"({len(taps)} taps, remove_dc={remove_dc}): "
+                             f"{m}, scale {scale}")
+    m["args"] = args
+    return m
+
+
+def phase_bank_vs_plain(dev: torch.device, shared: dict) -> dict:
+    """correlator_bank against correlator_bank_reference at 58 MHz and 8
+    channels: from the NCO state the tracker reached after 1000 blocks
+    (block lengths nominal −2..+2) and from states spread over code phase,
+    carrier frequency (±5 kHz about the IF), carrier phase and window
+    position."""
+    cfg, src, chips = shared["cfg"], shared["src"], shared["chips"]
+    st = shared["tracked"]
+    n = st.ptr.shape[0]
+    S = cfg.signal.samples_per_ms
+    blk = -(-(S + 256) // 128) * 128
+    i64, f64 = torch.int64, torch.float64
+    rng = np.random.default_rng(17)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def carr_fp_of(carr_freq):
+        return torch.round(carr_freq / FS * tc.Q32).to(i64)
+
+    nominal = torch.ceil((1023.0 - st.rem_chip) / (st.code_freq / FS)).to(i64)
+    jitter = t([(i % 5) - 2 for i in range(n)], i64)
+    locked = dict(ptr=st.ptr, rem_chip=st.rem_chip, code_freq=st.code_freq,
+                  phase_fp=st.phase_fp.to(i64),
+                  carr_fp=carr_fp_of(st.carr_freq), num=nominal + jitter)
+    start = int(st.ptr.min()) - S
+    raw = shared["stager"].stage(src.read_iq_values(start, 4 * S))
+    dopp = rng.uniform(-5000.0, 5000.0, n)
+    code_freq = t(cfg.signal.code_freq_basis * (1 + dopp / cfg.signal.fc),
+                  f64)
+    rem = t(rng.uniform(-0.4, 1.4, n), f64)
+    spread = dict(
+        ptr=t(start + rng.integers(0, 2 * S, n), i64), rem_chip=rem,
+        code_freq=code_freq,
+        phase_fp=t(rng.integers(-2 ** 31, 2 ** 31, n), i64),
+        carr_fp=carr_fp_of(t(F_IF + dopp, f64)),
+        num=torch.ceil((1023.0 - rem) / (code_freq / FS)).to(i64) + jitter)
+
+    # the scale of every comparison: the tracked state's prompt magnitude
+    epl = VTParams().taps
+    p, _ = cb.correlator_bank_reference(
+        raw, locked["ptr"] - start, locked["rem_chip"], locked["code_freq"],
+        locked["phase_fp"], locked["carr_fp"], locked["num"], chips,
+        cb.tap_offsets_fp(epl, dev), FS, blk)
+    scale = float(torch.hypot(p[:, 1, 0], p[:, 1, 1]).mean())
+
+    res = dict(bound_rel=BANK_BOUND_REL, prompt_scale=scale, cases={})
+    timed = {}
+    for name, taps in (("epl3", epl), ("vt29", VTParams.multicorr().taps)):
+        for remove_dc in (False, True):
+            for tag, nco in (("locked", locked), ("spread", spread)):
+                m = _bank_case(raw, start, nco, chips, taps, blk, remove_dc,
+                               scale)
+                args = m.pop("args")
+                if tag == "locked":
+                    flag = cb.new_fault(dev)
+                    m["kernel_ms"] = timed_graph_ms(
+                        lambda: cb.correlator_bank(*args, fault=flag), 10)
+                    m["kernel_1cta_ms"] = timed_graph_ms(
+                        lambda: cb.correlator_bank(*args, fault=flag,
+                                                   n_split=1), 10)
+                    m["wrapper_ms"] = timed_ms(
+                        lambda: cb.correlator_bank(*args, fault=flag), 50)
+                    m["plain_ms"] = timed_ms(
+                        lambda: cb.correlator_bank_reference(*args), 3)
+                    timed[(name, remove_dc)] = m
+                res["cases"][f"{name}_dc{int(remove_dc)}_{tag}"] = m
+    res["max_abs_err"] = max(m["max_abs_err"] for m in res["cases"].values())
+    res["bitwise"] = all(m["bitwise"] for m in res["cases"].values())
+    res["n_split"] = cb.default_split(n)
+    res["empty_launch_ms"] = timed_graph_ms(lambda: cb.empty_launch(dev), 10)
+    res["empty_launch_eager_ms"] = timed_ms(lambda: cb.empty_launch(dev), 200)
+
+    # the main path's shape: 3 taps, int8 (no DC removal).  Bound: the
+    # union of the channels' windows read once, the code tables, the NCO
+    # words, the result written once
+    head = timed[("epl3", False)]
+    num = locked["num"]
+    head.update(bound_ms(
+        union_samples(locked["ptr"], locked["ptr"] + num) * 2
+        * raw.element_size() + chips.numel() * 4 + n * 6 * 8 + 3 * 8
+        + n * 3 * 2 * 4,
+        int(num.sum()) * (OPS_PER_SAMPLE + OPS_PER_TAP * 3)))
+    res["main_shape"] = head
+
+    # nothing is clamped: a window past the end of the chunk raises the flag
+    past = dict(locked, ptr=locked["ptr"].clone())
+    past["ptr"][n - 1] = start + raw.shape[0] - 100
+    _, fault = cb.correlator_bank(
+        raw, past["ptr"] - start, past["rem_chip"], past["code_freq"],
+        past["phase_fp"], past["carr_fp"], past["num"], chips,
+        cb.tap_offsets_fp(epl, dev), FS, blk)
+    res["fault_flag"] = int(fault[0])
+    try:
+        cb.raise_on_fault(fault)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("a window past the chunk raised no fault")
+    if res["fault_flag"] != n:
+        raise AssertionError(f"fault flag {res['fault_flag']}, expected {n}")
+    evidence("bank_vs_plain", **res)
     return res
 
 
-def phase_main_path(dev: torch.device, workdir: str) -> dict:
+def profile_vt(rx: Receiver, usr: np.ndarray, n_ms: int = 100) -> None:
+    """Trace `n_ms` of vector tracking (CT served from its artifact): the
+    step's operation count and its largest items on the host and the card."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rx.vt_position(n_ms=n_ms, ct_n_ms=CT_MS, init_pos_ecef=usr)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    ops = [r for r in rows if r.key.startswith("aten::")]
+
+    def dev_us(r):
+        return getattr(r, "self_device_time_total",
+                       getattr(r, "self_cuda_time_total", 0.0))
+
+    evidence(
+        "vt_profile", n_ms=n_ms, wall_s=wall,
+        aten_calls_per_step=sum(r.count for r in ops) / n_ms,
+        host_self_ms_per_step=sum(r.self_cpu_time_total for r in rows)
+        / n_ms / 1e3,
+        device_busy_ms_per_step=sum(dev_us(r) for r in rows) / n_ms / 1e3,
+        top_host=[[r.key, r.count, round(r.self_cpu_time_total / n_ms, 2)]
+                  for r in sorted(rows, key=lambda r: -r.self_cpu_time_total)
+                  [:12]],
+        top_device=[[r.key[:60], r.count, round(dev_us(r) / n_ms, 2)]
+                    for r in sorted(rows, key=lambda r: -dev_us(r))[:8]])
+
+
+def phase_main_path(dev: torch.device, workdir: str,
+                    with_profile: bool = False) -> dict:
     cfg = cfg_e2e()
     S = cfg.signal.samples_per_ms
     usr = llh2xyz(np.asarray(TRUTH_LLH)).numpy()
@@ -271,12 +511,30 @@ def phase_main_path(dev: torch.device, workdir: str) -> dict:
         return out
 
     tc.track_chunk.launches = 0
+    cb.correlator_bank.launches = 0
     acq = stage("acquisition_s", rx.acquisition)
     eph_rec = stage("eph_tracking_s", lambda: rx.track_for_eph(n_ms=EPH_MS))
     stage("decode_s", lambda: rx.decode(start_offset_ms=DECODE_OFFSET_MS))
     usable = stage("usable_svs_s", rx.usable_svs)
-    ct_rec, nav = stage("ct_wls_s", lambda: rx.ct_position(n_ms=CT_MS))
+    # the start position is given (the default, the truth position), so the
+    # VT stage finds the CT stage's artifact under the same key
+    ct_rec, nav = stage("ct_wls_s", lambda: rx.ct_position(
+        n_ms=CT_MS, init_pos_ecef=usr))
     launches = tc.track_chunk.launches
+    if cb.correlator_bank.launches != 0:
+        raise AssertionError("the scalar path launched correlator_bank")
+    # the vector-tracking path, counted on its own: its CT stage is served
+    # from the artifact just written, so only the bank launches here
+    tc.track_chunk.launches = 0
+    cb.correlator_bank.launches = 0
+    vt_trk, vt_sol = stage("vt_ekf_s", lambda: rx.vt_position(
+        n_ms=VT_MS, ct_n_ms=CT_MS, init_pos_ecef=usr))
+    bank_launches = cb.correlator_bank.launches
+    if tc.track_chunk.launches != 0:
+        raise AssertionError("vt_position tracked CT again instead of "
+                             "loading its artifact")
+    if with_profile:
+        profile_vt(rx, usr)
 
     missing = sorted(set(PRNS) - set(int(p) for p in acq.sv))
     if missing:
@@ -300,6 +558,26 @@ def phase_main_path(dev: torch.device, workdir: str) -> dict:
     if launches != expect:
         raise AssertionError(f"track_chunk launched {launches} times, "
                              f"expected {expect} (one per chunk)")
+    if bank_launches != VT_MS:
+        raise AssertionError(f"correlator_bank launched {bank_launches} "
+                             f"times, expected {VT_MS} (one per ms)")
+    n_vt = len(usable)
+    if vt_trk.corr.shape != (VT_MS, n_vt, 3, 2) or \
+            vt_sol.usr_pos.shape != (VT_MS, 3) or \
+            vt_sol.kalman_gain.shape != (VT_MS, 8, 2 * n_vt):
+        raise AssertionError("unexpected VT record shapes")
+    for obj in (vt_trk, vt_sol):
+        for name, arr in vars(obj).items():
+            if not np.all(np.isfinite(arr)):
+                raise AssertionError(f"non-finite VT output: {name}")
+    n_valid = vt_sol.valid[VT_SETTLE_MS:].sum(axis=1)
+    if n_valid.min() < 4:
+        raise AssertionError(f"VT gate kept {n_valid.min()} channels")
+    vt_err = np.linalg.norm(vt_sol.usr_pos - usr, axis=1)[VT_SETTLE_MS:]
+    vt_med = float(np.median(vt_err))
+    if vt_med >= WLS_GATE_M:
+        raise AssertionError(f"VT median error {vt_med:.1f} m >= "
+                             f"{WLS_GATE_M}")
     res = dict(
         capture_s=CAPTURE_MS / 1000, synth_s=gen_s, stages=stages,
         acquired=[int(p) for p in acq.sv],
@@ -307,6 +585,11 @@ def phase_main_path(dev: torch.device, workdir: str) -> dict:
         usable_svs=[int(p) for p in usable], wls_epochs=int(len(err)),
         wls_median_err_m=med, wls_max_err_m=float(np.max(err)),
         track_chunk_launches=launches,
+        vt_ms=VT_MS, vt_channels=n_vt, vt_median_err_m=vt_med,
+        vt_max_err_m=float(np.max(vt_err)),
+        vt_min_valid_channels=int(n_valid.min()),
+        vt_ms_per_step=stages["vt_ekf_s"] / VT_MS * 1e3,
+        correlator_bank_launches=bank_launches,
         eph_tracking_capture_samples_per_s=EPH_MS * S
         / stages["eph_tracking_s"],
         eph_tracking_channel_samples_per_s=EPH_MS * S * len(acq.sv)
@@ -324,14 +607,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_device_and_build()
-    kvp = phase_kernel_vs_plain(dev)
+    kvp, shared = phase_kernel_vs_plain(dev)
+    bank = phase_bank_vs_plain(dev, shared)
+    del shared
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_",
                                dir=os.path.join(ROOT, "build"))
     try:
-        main_res = phase_main_path(dev, workdir)
+        main_res = phase_main_path(dev, workdir,
+                                   "--profile-vt" in sys.argv[1:])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    head = bank["main_shape"]
+    evidence("vt_bank_share", bank_kernel_ms=head["kernel_ms"],
+             launches=main_res["correlator_bank_launches"],
+             vt_ekf_s=main_res["stages"]["vt_ekf_s"],
+             share=head["kernel_ms"] * 1e-3
+             * main_res["correlator_bank_launches"]
+             / main_res["stages"]["vt_ekf_s"])
+    # no single PyTorch call computes either function: library_ms is null
     print(json.dumps({"kernels": [{
         "name": "track_chunk", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/track_chunk.cu",
@@ -339,8 +633,17 @@ def main() -> int:
         "launches": main_res["track_chunk_launches"],
         "max_abs_err": max(kvp["epl"]["corr_abs"],
                            kvp["pos_multicorr"]["corr_abs"]),
-        "ms": kvp["epl"]["kernel_ms"], "plain_ms": kvp["epl"]["plain_ms"]}]}),
-        flush=True)
+        "ms": kvp["epl"]["kernel_ms"], "plain_ms": kvp["epl"]["plain_ms"],
+        "bound_ms": kvp["epl"]["bound_ms"],
+        "bound_by": kvp["epl"]["bound_by"], "library_ms": None}, {
+        "name": "correlator_bank", "route": "cuda",
+        "source": "gps_sdr_tpu_torch/csrc/corr_bank.cu",
+        "replaces": "gps_sdr_tpu/ops/pallas_track.py:428",
+        "launches": main_res["correlator_bank_launches"],
+        "max_abs_err": bank["max_abs_err"],
+        "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

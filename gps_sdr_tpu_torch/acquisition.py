@@ -24,6 +24,7 @@ import torch
 from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.io.ifdata import IFSampleSource
 from gps_sdr_tpu_torch.ops.cacode import CODE_LENGTH, ca_code_table
+from gps_sdr_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -130,6 +131,7 @@ def fine_doppler(long_signal: np.ndarray, prn: int, code_delay: int,
     """Fine carrier frequency via the ×20 zero-padded long FFT
     (acquisition.m:102-121), at the exact non power-of-two length, in
     complex128, on `device`.  Resolution fs/(L·S·20) ≈ 5 Hz at 58 MHz."""
+    device = resolve_device(device)
     sig, acq = cfg.signal, cfg.acq
     seg = _fine_segment(long_signal, prn, code_delay, cfg)
     fftlen = seg.shape[0] * acq.n_noncoherent_ms
@@ -146,7 +148,9 @@ def fine_doppler(long_signal: np.ndarray, prn: int, code_delay: int,
 def run_acquisition(source: IFSampleSource, cfg: ReceiverConfig,
                     prns: Optional[Sequence[int]] = None,
                     device=None) -> AcquisitionResult:
-    """Full acquisition stage on one capture (acquisition.m end to end)."""
+    """Full acquisition stage on one capture (acquisition.m end to end),
+    on `device` (the card when None)."""
+    device = resolve_device(device)
     prns = list(prns if prns is not None else cfg.acq.prn_list)
     sig, acq = cfg.signal, cfg.acq
     S = sig.samples_per_ms

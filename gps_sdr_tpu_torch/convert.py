@@ -17,7 +17,10 @@ from gps_sdr_tpu_torch import config as cfg_mod
 from gps_sdr_tpu_torch.acquisition import AcquisitionResult
 from gps_sdr_tpu_torch.navdecode import EphemerisRecord
 from gps_sdr_tpu_torch.receiver.ct import NavSolutions
+from gps_sdr_tpu_torch.receiver.vt import (_VT_STATE_DTYPES, VTSolutions,
+                                           VTState, VTTrackRecords)
 from gps_sdr_tpu_torch.tracking import _REC_FIELDS, TrackRecords, TrackState
+from gps_sdr_tpu_torch.utils.device import resolve_device
 
 _CFG_PARTS = {"file": cfg_mod.FileConfig, "signal": cfg_mod.SignalConfig,
               "acq": cfg_mod.AcqConfig, "track": cfg_mod.TrackConfig,
@@ -53,7 +56,9 @@ def acquisition_to_numpy(acq) -> Dict[str, np.ndarray]:
 
 
 def track_state_from_jax(state, device=None) -> TrackState:
-    """A JAX TrackState (jax arrays) → the port's, tensors on `device`."""
+    """A JAX TrackState (jax arrays) → the port's, tensors on `device`
+    (the card when None)."""
+    device = resolve_device(device)
     return TrackState(**{
         f: torch.as_tensor(np.array(getattr(state, f)),
                            dtype=_STATE_DTYPES.get(f, torch.float64),
@@ -61,10 +66,29 @@ def track_state_from_jax(state, device=None) -> TrackState:
         for f in TrackState._fields})
 
 
+def _arr(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def track_state_to_numpy(state) -> Dict[str, np.ndarray]:
-    def arr(x):
-        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-    return {f: arr(getattr(state, f)) for f in TrackState._fields}
+    return {f: _arr(getattr(state, f)) for f in TrackState._fields}
+
+
+def vt_state_from_jax(state, device=None) -> VTState:
+    """A JAX VTState (jax arrays) → the port's, tensors on `device` (the
+    card when None); float fields become float64 (the port's `vt_scan`
+    casts the covariance loop to float32 itself, as the JAX scan does)."""
+    device = resolve_device(device)
+    return VTState(**{
+        f: torch.as_tensor(np.array(getattr(state, f)),
+                           dtype=_VT_STATE_DTYPES.get(f, torch.float64),
+                           device=device)
+        for f in VTState._fields})
+
+
+def vt_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """Either package's VTState as numpy arrays."""
+    return {f: _arr(getattr(state, f)) for f in VTState._fields}
 
 
 def records_from_jax(rec) -> TrackRecords:
@@ -75,6 +99,32 @@ def records_from_jax(rec) -> TrackRecords:
 
 def records_to_numpy(rec) -> Dict[str, np.ndarray]:
     return {f: np.asarray(getattr(rec, f)) for f in _REC_FIELDS}
+
+
+def _dataclass_from(cls, obj):
+    return cls(**{f: (None if getattr(obj, f) is None
+                      else np.array(getattr(obj, f))) for f in _fields(cls)})
+
+
+def _dataclass_to_numpy(cls, obj) -> Dict[str, np.ndarray]:
+    return {f: np.asarray(getattr(obj, f)) for f in _fields(cls)
+            if getattr(obj, f) is not None}
+
+
+def vt_records_from_jax(trk) -> VTTrackRecords:
+    return _dataclass_from(VTTrackRecords, trk)
+
+
+def vt_records_to_numpy(trk) -> Dict[str, np.ndarray]:
+    return _dataclass_to_numpy(VTTrackRecords, trk)
+
+
+def vt_solutions_from_jax(sol) -> VTSolutions:
+    return _dataclass_from(VTSolutions, sol)
+
+
+def vt_solutions_to_numpy(sol) -> Dict[str, np.ndarray]:
+    return _dataclass_to_numpy(VTSolutions, sol)
 
 
 def ephemeris_from_jax(eph: Dict[int, object], sbf: Dict[str, dict]
@@ -99,11 +149,8 @@ def ephemeris_to_numpy(eph: Dict[int, object]) -> Dict[int, dict]:
 
 
 def nav_from_jax(nav) -> NavSolutions:
-    return NavSolutions(**{f: (None if getattr(nav, f) is None
-                               else np.array(getattr(nav, f)))
-                           for f in _fields(NavSolutions)})
+    return _dataclass_from(NavSolutions, nav)
 
 
 def nav_to_numpy(nav) -> Dict[str, np.ndarray]:
-    return {f: np.asarray(getattr(nav, f)) for f in _fields(NavSolutions)
-            if getattr(nav, f) is not None}
+    return _dataclass_to_numpy(NavSolutions, nav)

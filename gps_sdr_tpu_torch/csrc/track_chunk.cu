@@ -43,16 +43,11 @@
 // finite) sets *fault = 1 + channel and stops that channel; the host raises
 // when it reads the records back.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "nco_common.cuh"
 
 namespace {
 
-constexpr int kCodeLen = 1023;
-constexpr int kMaxTaps = 32;
-constexpr double kQ32 = 4294967296.0;
-constexpr double kTwoPi = 6.283185307179586;
-constexpr float kToRad = (float)(kTwoPi / kQ32);  // one Q32 LSB in radians
+using namespace nco;
 
 struct Params {
   long long n_raw;        // samples in the chunk
@@ -70,16 +65,6 @@ struct ChanState {
   double rem, code_freq, carr_freq, carr_basis;
   double dll_nco, dll_last, pll_nco, pll_last;
 };
-
-template <typename RawT> struct PairOf;
-template <> struct PairOf<int8_t> { typedef char2 type; };
-template <> struct PairOf<int16_t> { typedef short2 type; };
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // NT > 0: tap count fixed at compile time; NT == 0: runtime p.ntaps.
 template <int NT, int THREADS, typename RawT>
@@ -143,11 +128,7 @@ track_chunk_kernel(Params p, const RawT* __restrict__ raw,
     const unsigned phase0 = s.phase;
     const PairT* x = xs + off;
 
-    if (tid < 128) {
-      const float ph = (float)(int)((unsigned)tid * carr_fp) * kToRad;
-      s_vc[tid] = cosf(ph);
-      s_vs[tid] = sinf(ph);
-    }
+    if (tid < 128) r_phasor((unsigned)tid, carr_fp, &s_vc[tid], &s_vs[tid]);
 
     float dc_r = 0.f, dc_i = 0.f;
     if (p.remove_dc) {  // integer sums: exact in float64, order-free
@@ -174,30 +155,20 @@ track_chunk_kernel(Params p, const RawT* __restrict__ raw,
 
     // segments of THREADS q-rows (THREADS*128 samples): any block length
     for (int q0 = 0; q0 * 128 < num; q0 += THREADS) {
-      {
-        const unsigned q = (unsigned)(q0 + tid);
-        const float ph = (float)(int)(phase0 + q * (carr_fp * 128u)) * kToRad;
-        s_uc[tid] = cosf(ph);
-        s_us[tid] = sinf(ph);
-      }
+      q_phasor(phase0, (unsigned)(q0 + tid), carr_fp, &s_uc[tid], &s_us[tid]);
       __syncthreads();  // also publishes s_vc/s_vs on the first segment
       const float vc = s_vc[tid & 127], vs = s_vs[tid & 127];
       const int kend = min(num, (q0 + THREADS) * 128);
       for (int k = q0 * 128 + tid; k < kend; k += THREADS) {
         const PairT v = x[k];
         const float xr = (float)v.x - dc_r, xi = (float)v.y - dc_i;
-        const float uc = s_uc[(k >> 7) - q0], us = s_us[(k >> 7) - q0];
-        const float c = uc * vc - us * vs;  // cos theta_k
-        const float sn = uc * vs + us * vc; // sin theta_k
-        const float mi = xr * sn + xi * c;  // I = imag(x e^{i theta})
-        const float mq = xr * c - xi * sn;  // Q = real(x e^{i theta})
+        float mi, mq;  // I = imag(x e^{i theta}), Q = real
+        mix(xr, xi, s_uc[(k >> 7) - q0], s_us[(k >> 7) - q0], vc, vs, &mi, &mq);
         const long long kb = base_fp + (long long)k * step_fp - 1;
 #pragma unroll
         for (int t = 0; t < T; ++t) {
           if (NT > 0 || t < ntaps) {
-            int ci = (int)((kb + s_tap[t]) >> 32) % kCodeLen;
-            ci += ci < 0 ? kCodeLen : 0;
-            const float cv = s_chips[ci];
+            const float cv = s_chips[chip_index(kb, s_tap[t])];
             acc_i[t] += (double)(cv * mi);
             acc_q[t] += (double)(cv * mq);
           }

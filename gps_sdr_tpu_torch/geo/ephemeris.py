@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from gps_sdr_tpu_torch.geo.coords import f64
+from gps_sdr_tpu_torch.utils.device import resolve_device
 
 GPS_PI = 3.1415926535898
 MU_EARTH = 3.986005e14
@@ -49,7 +50,9 @@ class Ephemeris(NamedTuple):
 
     @staticmethod
     def stack(eph_list, device=None) -> "Ephemeris":
-        """From a list of objects or dicts carrying the fields."""
+        """From a list of objects or dicts carrying the fields, on
+        `device` (the card when None)."""
+        device = resolve_device(device)
         def get(e, f):
             return e[f] if isinstance(e, dict) else getattr(e, f)
         return Ephemeris(*[f64([float(get(e, f)) for e in eph_list], device)

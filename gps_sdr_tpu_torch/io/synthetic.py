@@ -31,6 +31,7 @@ from gps_sdr_tpu_torch.geo.earth import earth_rotation_correction
 from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris, sv_pos_vel_clock
 from gps_sdr_tpu_torch.io import lnav
 from gps_sdr_tpu_torch.ops.cacode import CODE_LENGTH, ca_code
+from gps_sdr_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -54,7 +55,9 @@ def _noise(n: int, std: float, gen: torch.Generator, device) -> torch.Tensor:
 def generate_if_samples(cfg: ReceiverConfig, svs: Sequence[SyntheticSV],
                         duration_ms: int, noise_std: float = 0.0,
                         seed: int = 0, device=None) -> torch.Tensor:
-    """Constant-dynamics IF stream, complex128 (n_samples,) on `device`."""
+    """Constant-dynamics IF stream, complex128 (n_samples,) on `device`
+    (the card when None)."""
+    device = resolve_device(device)
     sig = cfg.signal
     n = int(round(sig.fs * duration_ms * 1e-3))
     t = torch.arange(n, dtype=torch.float64, device=device) / sig.fs
@@ -123,8 +126,7 @@ class GeometrySignal:
                  doy: int = 171, device=None):
         self.cfg = cfg
         self.svs = list(svs)
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         self.usr = f64(np.asarray(usr_pos_ecef, np.float64), self.device)
         self.tow0 = float(tow0)
         self.clk_bias_s = float(clk_bias_s)

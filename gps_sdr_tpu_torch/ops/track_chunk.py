@@ -42,28 +42,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from gps_sdr_tpu_torch.ops import _build
 from gps_sdr_tpu_torch.ops.cacode import CODE_LENGTH
 from gps_sdr_tpu_torch.ops.loops import (dll_discriminator, loop_filter_step,
                                          pll_discriminator)
 
 Q32 = 4294967296.0  # 2**32
 MAX_TAPS = 32
-
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "track_chunk.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 _STATE_I = ("ptr", "phase_fp")
 _STATE_F = ("rem_chip", "code_freq", "carr_freq", "carr_freq_basis",
@@ -165,6 +156,80 @@ def _check_inputs(raw: torch.Tensor, state, chips: torch.Tensor,
             f"need {need}")
 
 
+class BlockGrid(NamedTuple):
+    """Index tensors of one block window of `blk` = 128·nq samples."""
+
+    k: torch.Tensor        # (blk,) int64 sample index
+    q: torch.Tensor        # (nq,) int64 row index, k = 128·q + r
+    r: torch.Tensor        # (128,) int64
+    to_rad: torch.Tensor   # float32 scalar: one Q32 LSB in radians
+
+    @staticmethod
+    def make(blk: int, device) -> "BlockGrid":
+        i64 = torch.int64
+        return BlockGrid(
+            k=torch.arange(blk, dtype=i64, device=device),
+            q=torch.arange(blk // 128, dtype=i64, device=device),
+            r=torch.arange(128, dtype=i64, device=device),
+            to_rad=torch.tensor(2.0 * math.pi / Q32, dtype=torch.float32,
+                                device=device))
+
+
+def correlate_blocks(x_all: torch.Tensor, off: torch.Tensor,
+                     num: torch.Tensor, rem: torch.Tensor,
+                     step: torch.Tensor, phase: torch.Tensor,
+                     carr_fp: torch.Tensor, chips: torch.Tensor,
+                     tap_fp: torch.Tensor, remove_dc: bool,
+                     grid: BlockGrid) -> torch.Tensor:
+    """One coherent block of every channel, plain PyTorch: the "nco" branch
+    of the JAX package's `tracking.correlate_block` batched over channels.
+
+    x_all (L, 2) float32 chunk; per channel (N,): `off` window start in the
+    chunk and `num` block length (int64), `rem` code phase [chips] and
+    `step` chips per sample (float64), `phase` and `carr_fp` Q32 carrier
+    words (int64 holding int32 values); chips (N, 1023) float32; tap_fp
+    (T,) int64 Q32 tap offsets.  Window indices are clamped into the chunk
+    (the caller flags a window that leaves it).  Returns (N, T, 2) float32
+    [I, Q] sums.
+    """
+    f32, f64 = torch.float32, torch.float64
+    n = off.shape[0]
+    blk = grid.k.shape[0]
+    idx = torch.clamp(off[:, None] + grid.k[None, :], 0, x_all.shape[0] - 1)
+    mask = (grid.k[None, :] < num[:, None])[..., None]
+    x = torch.where(mask, x_all[idx], 0.0)                     # (N, blk, 2)
+    if remove_dc:
+        # integer sums are exact in float64: the mean is order-free
+        dc = (x.sum(dim=1, dtype=f64) / num.to(f64)[:, None]).to(f32)
+        x = torch.where(mask, x - dc[:, None, :], 0.0)
+
+    # ---- carrier: Q32 phasor outer product (tracking.py:274-288) ----
+    phq = _wrap32(phase[:, None] + grid.q[None, :] * (carr_fp[:, None] * 128)
+                  ).to(f32) * grid.to_rad
+    phr = _wrap32(grid.r[None, :] * carr_fp[:, None]).to(f32) * grid.to_rad
+    uc, us = torch.cos(phq), torch.sin(phq)
+    vc, vs = torch.cos(phr), torch.sin(phr)
+    c = (uc[:, :, None] * vc[:, None, :]
+         - us[:, :, None] * vs[:, None, :]).reshape(n, blk)
+    s = (uc[:, :, None] * vs[:, None, :]
+         + us[:, :, None] * vc[:, None, :]).reshape(n, blk)
+    xr, xi = x[..., 0], x[..., 1]
+    # mixed = x·e^{iθ}: I = imag, Q = real (trackingCT.m:113)
+    iq = torch.stack([xr * s + xi * c, xr * c - xi * s], dim=-1)
+
+    # ---- exact Q32 chip index per tap (tracking.py:305-312) ----
+    step_fp = torch.round(step * Q32).to(torch.int64)
+    base_fp = torch.round(rem * Q32).to(torch.int64)
+    # arithmetic shift: floor division by 2^32, negative indices too
+    cidx = torch.bitwise_right_shift(
+        (base_fp[:, None] + tap_fp[None, :] - 1)[:, :, None]
+        + grid.k[None, None, :] * step_fp[:, None, None], 32)
+    cidx = torch.remainder(cidx, CODE_LENGTH)                  # (N, T, blk)
+    code = torch.gather(chips, 1, cidx.reshape(n, -1)).reshape(cidx.shape)
+    # float64 sums of the exact ±1·sample products, rounded once
+    return torch.einsum("ntb,nbc->ntc", code.to(f64), iq.to(f64)).to(f32)
+
+
 def track_chunk_reference(raw: torch.Tensor, chunk_start: int, state,
                           chips: torch.Tensor, spec: ChunkSpec,
                           n_steps: int):
@@ -184,19 +249,13 @@ def track_chunk_reference(raw: torch.Tensor, chunk_start: int, state,
     x_all = raw.to(f32)
     L = x_all.shape[0]
     n = state.ptr.shape[0]
-    fs = spec.fs
-    blk = spec.blk
-    nq = blk // 128
     n_chips = spec.n_chips
     ie, ip, il = spec.epl
     tap_fp = torch.as_tensor(spec.tap_fp(), device=dev)
-    k = torch.arange(blk, dtype=i64, device=dev)
-    q_idx = torch.arange(nq, dtype=i64, device=dev)
-    r_idx = torch.arange(128, dtype=i64, device=dev)
+    grid = BlockGrid.make(spec.blk, dev)
     # divisors as device tensors: a true division on every device (CUDA
     # turns division by a host scalar into a reciprocal multiply)
-    fs_t = torch.tensor(fs, dtype=f64, device=dev)
-    to_rad = torch.tensor(2.0 * math.pi / Q32, dtype=f32, device=dev)
+    fs_t = torch.tensor(spec.fs, dtype=f64, device=dev)
     sign = torch.tensor(spec.sign, dtype=f32, device=dev)
     dll_a, dll_b, pll_a, pll_b = spec.loop_gains()
 
@@ -219,42 +278,9 @@ def track_chunk_reference(raw: torch.Tensor, chunk_start: int, state,
                else torch.round(n_exact)).to(i64)
         off = ptr - chunk_start
         bad |= (off < 0) | (off + num > L) | ~torch.isfinite(n_exact)
-        idx = torch.clamp(off[:, None] + k[None, :], 0, L - 1)
-        mask = (k[None, :] < num[:, None])[..., None]
-        x = torch.where(mask, x_all[idx], 0.0)                 # (N, blk, 2)
-        if spec.remove_dc:
-            # integer sums are exact in float64: the mean is order-free
-            dc = (x.sum(dim=1, dtype=f64) / num.to(f64)[:, None]).to(f32)
-            x = torch.where(mask, x - dc[:, None, :], 0.0)
-
-        # ---- carrier: Q32 phasor outer product (tracking.py:274-288) ----
         carr_fp = _wrap32(torch.round(carr_freq / fs_t * Q32).to(i64))
-        phq = _wrap32(phase[:, None] + q_idx[None, :] * (carr_fp[:, None]
-                                                          * 128)
-                      ).to(f32) * to_rad
-        phr = _wrap32(r_idx[None, :] * carr_fp[:, None]).to(f32) * to_rad
-        uc, us = torch.cos(phq), torch.sin(phq)
-        vc, vs = torch.cos(phr), torch.sin(phr)
-        c = (uc[:, :, None] * vc[:, None, :]
-             - us[:, :, None] * vs[:, None, :]).reshape(n, blk)
-        s = (uc[:, :, None] * vs[:, None, :]
-             + us[:, :, None] * vc[:, None, :]).reshape(n, blk)
-        xr, xi = x[..., 0], x[..., 1]
-        # mixed = x·e^{iθ}: I = imag, Q = real (trackingCT.m:113)
-        iq = torch.stack([xr * s + xi * c, xr * c - xi * s], dim=-1)
-
-        # ---- exact Q32 chip index per tap (tracking.py:305-312) ----
-        step_fp = torch.round(step * Q32).to(i64)
-        base_fp = torch.round(rem * Q32).to(i64)
-        # arithmetic shift: floor division by 2^32, negative indices too
-        cidx = torch.bitwise_right_shift(
-            (base_fp[:, None] + tap_fp[None, :] - 1)[:, :, None]
-            + k[None, None, :] * step_fp[:, None, None], 32)
-        cidx = torch.remainder(cidx, CODE_LENGTH)              # (N, T, blk)
-        code = torch.gather(chips, 1, cidx.reshape(n, -1)).reshape(cidx.shape)
-        # float64 sums of the exact ±1·sample products, rounded once
-        corr = torch.einsum("ntb,nbc->ntc", code.to(f64), iq.to(f64)
-                            ).to(f32) * sign                  # (N, T, 2)
+        corr = correlate_blocks(x_all, off, num, rem, step, phase, carr_fp,
+                                chips, tap_fp, spec.remove_dc, grid) * sign
 
         rem_new = num.to(f64) * step + rem - n_chips
         phase_new = _wrap32(phase + num * carr_fp)
@@ -295,54 +321,10 @@ def track_chunk_reference(raw: torch.Tensor, chunk_start: int, state,
 # ---------------------------------------------------------------- build
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-        return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"     # the toolkit's default prefix
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("track_chunk: nvcc not found (set CUDA_HOME)")
-
-
-def build_library(build_dir: Path = _BUILD_DIR) -> Tuple[Path, str, float]:
-    """Compile `csrc/track_chunk.cu` for sm_90a into `build_dir` (skipped
-    when a library of the same source is already there).  Returns
-    (library path, compiler log, seconds spent compiling)."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    build_dir = Path(build_dir)
-    out = build_dir / f"track_chunk-{tag}.so"
-    if out.exists():
-        return out, "", 0.0
-    build_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    # -fmad=false: no a*b+c contraction, so the kernel rounds every
-    # operation where the plain version does (see the source's header)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-o", tmp, str(_SRC)]
-    t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError("track_chunk: nvcc failed\n" + res.stdout
-                               + res.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out, res.stdout + res.stderr, time.perf_counter() - t0
-
-
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    path, _, _ = build_library()
+    path, _, _ = _build.build_library("track_chunk")
     lib = ctypes.CDLL(str(path))
     p = ctypes.c_void_p
     lib.track_chunk_launch.argtypes = [

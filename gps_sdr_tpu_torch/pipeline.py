@@ -18,17 +18,20 @@ import tempfile
 from typing import Optional
 
 import numpy as np
-import torch
 
 from gps_sdr_tpu_torch import navdecode
 from gps_sdr_tpu_torch.acquisition import AcquisitionResult, run_acquisition
 from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.geo.coords import llh2xyz
+from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris
 from gps_sdr_tpu_torch.io.ifdata import IFSampleSource
 from gps_sdr_tpu_torch.receiver.ct import NavSolutions, run_ct_positioning
+from gps_sdr_tpu_torch.receiver.vt import (VTParams, init_vt_state,
+                                           run_vector_tracking)
 from gps_sdr_tpu_torch.tracking import (_REC_FIELDS, TrackParams,
                                         TrackRecords, init_track_state,
                                         run_tracking)
+from gps_sdr_tpu_torch.utils.device import resolve_device
 
 
 def detect_bit_transition(p_i: np.ndarray, min_index: int = 600) -> int:
@@ -61,7 +64,8 @@ def _atomic_write(path: str, write) -> None:
 
 
 class Receiver:
-    """Staged receiver with artifact caching, on one device.
+    """Staged receiver with artifact caching, on one device: the CUDA
+    card unless `device` says otherwise (`device="cpu"` for the CPU).
 
     Stage artifacts (mirroring SDR_main.m's .mat files):
       acquired_{name}_{skip}.npz    Acquired{sv,SNR,Doppler,codedelay,fineFreq}
@@ -70,6 +74,7 @@ class Receiver:
       eph_{name}.pkl                {prn: EphemerisRecord} + sbf{nav1,sfb1}
       nacquired_{name}_{skip}.npz   acquisition fields of the usable SVs
       tckct_{key}.npz / navct_{key}.pkl   CT-POS records + WLS solutions
+      navvt2_{key}.pkl              (VTTrackRecords, VTSolutions)
     """
 
     def __init__(self, cfg: ReceiverConfig, source: IFSampleSource,
@@ -77,8 +82,7 @@ class Receiver:
         self.cfg = cfg
         self.source = source
         self.dir = artifact_dir
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         if artifact_dir:
             os.makedirs(artifact_dir, exist_ok=True)
         self._acq: Optional[AcquisitionResult] = None
@@ -263,3 +267,97 @@ class Receiver:
         self._save_records(stem_t, rec)
         self._save_pickle(stem_n, nav)
         return rec, nav
+
+    def _vt_stem(self, n_ms: Optional[int] = None,
+                 ct_n_ms: Optional[int] = None,
+                 init_pos_ecef: Optional[np.ndarray] = None,
+                 multicorr: Optional[bool] = None,
+                 replica: str = "auto", **_ignored) -> str:
+        """Artifact stem of a vt_position result for the given kwargs (the
+        JAX package's; `replica` only names the artifact there and here)."""
+        cfg = self.cfg
+        if multicorr is None:
+            multicorr = cfg.cmn.multicorr_vt
+        n_ms = n_ms or cfg.track.ms_vt
+        return (f"navvt2_{'mc_' if multicorr else ''}{cfg.file.name}"
+                f"_{n_ms}_{ct_n_ms or 'def'}"
+                + ("" if replica == "auto" else f"_{replica}")
+                + f"_{self._init_token(init_pos_ecef)}.pkl")
+
+    def vt_position(self, n_ms: Optional[int] = None,
+                    ct_n_ms: Optional[int] = None,
+                    init_pos_ecef: Optional[np.ndarray] = None,
+                    multicorr: Optional[bool] = None,
+                    chunk_ms: int = 1000, replica: str = "auto"):
+        """Stage 6 (SDR_main.m:94-99): vector tracking + EKF, warm-started
+        from the CT stage (trackingVT_POS_updated.m:66-70,109-132).
+
+        `multicorr` selects the 29-tap recording bank
+        (trackingVT_POS_updated_multicorrelator.m:26); default from
+        cmn.multicorr_vt.  The port has one correlator engine
+        (`ops/corr_bank`), so `replica` only keys the artifact, as the JAX
+        package's stems do.  Returns (VTTrackRecords, VTSolutions).
+        """
+        cfg = self.cfg
+        if multicorr is None:
+            multicorr = cfg.cmn.multicorr_vt
+        n_ms = n_ms or cfg.track.ms_vt
+        stem = self._vt_stem(n_ms=n_ms, ct_n_ms=ct_n_ms,
+                             init_pos_ecef=init_pos_ecef,
+                             multicorr=multicorr, replica=replica)
+        if self._have(stem):
+            return self._load_pickle(stem)
+        eph, sbf = self.decode()
+        pos_svs = self.usable_svs()
+        if init_pos_ecef is None:
+            init_pos_ecef = llh2xyz(np.asarray(cfg.solu.truth_llh)).numpy()
+        ct_rec, ct_nav = self.ct_position(n_ms=ct_n_ms,
+                                          init_pos_ecef=init_pos_ecef,
+                                          chunk_ms=chunk_ms)
+
+        # warm-start PVT from the CT epoch at skiptime_vt
+        epoch0 = cfg.file.skiptime_vt_ms // cfg.solu.nav_sol_period_ms - 1
+        est_pos = ct_nav.usr_pos[epoch0]
+        est_vel = ct_nav.usr_vel[epoch0]
+        clk_bias = float(ct_nav.clk_bias_m[epoch0])
+        clk_drift = float(ct_nav.clk_drift_ms[epoch0])
+
+        # per-channel NCO handoff at first-subframe + skiptime_vt ms
+        start_slot = {}
+        tt0 = np.empty(len(pos_svs))
+        for ch, p in enumerate(pos_svs):
+            first_sf_ms = sbf["nav1"][p] + eph[p].sfb[0] * 20
+            slot = first_sf_ms + cfg.file.skiptime_vt_ms - 1  # 0-based row
+            start_slot[ch] = slot
+            tt0[ch] = (eph[p].tow[0] + (slot + 1 - first_sf_ms) / 1000.0
+                       + ct_rec.rem_chip[slot, ch]
+                       / cfg.signal.code_freq_basis)
+        vt_kw = dict(remove_dc=cfg.file.data_precision == 2,
+                     pll_bw_hz=cfg.track.pll_bw_hz,
+                     pll_damping=cfg.track.pll_damping,
+                     pll_gain=cfg.track.pll_gain, replica=replica)
+        params = (VTParams.multicorr(**vt_kw) if multicorr
+                  else VTParams(**vt_kw))
+        state = init_vt_state(cfg, ct_rec, list(range(len(pos_svs))),
+                              start_slot, tt0, est_pos, est_vel, clk_bias,
+                              clk_drift, params, self.device)
+        eph_struct = Ephemeris.stack([eph[p].latest(0) for p in pos_svs],
+                                     self.device)
+        trk, sol, _ = run_vector_tracking(
+            self.source, cfg, pos_svs, eph_struct, state, params, n_ms,
+            init_pos_ecef, chunk_ms=chunk_ms)
+        self._save_pickle(stem, (trk, sol))
+        return trk, sol
+
+    def position(self, **kw):
+        """Mode dispatch (SDR_main.m:73-121 on solu.mode / cmn.vtEnable):
+        mode 0 → WLS (CT) solutions; mode 2 (with cmn.vt_enable) → VT/EKF
+        warm-started from CT.  Mode 1, the legacy position-domain EKF
+        (`ct_position_kf`), is not ported yet."""
+        if self.cfg.solu.mode == 2 and self.cfg.cmn.vt_enable:
+            return self.vt_position(**kw)
+        if self.cfg.solu.mode == 1:
+            raise NotImplementedError(
+                "solu.mode == 1 (the legacy position-domain EKF, "
+                "ct_position_kf) is not ported yet")
+        return self.ct_position(**kw)

@@ -95,7 +95,7 @@ def run_ct_positioning(records: TrackRecords, cfg: ReceiverConfig,
         pdi = np.broadcast_to(pdi[:, None], (T, n_ch))
     ms_elapsed = np.cumsum(pdi, axis=0)              # (T, N): ms at block end
 
-    eph_struct = Ephemeris.stack([eph[p].latest(0) for p in prns])
+    eph_struct = Ephemeris.stack([eph[p].latest(0) for p in prns], "cpu")
     tow1 = np.array([eph[p].tow[0] for p in prns])
     nav1 = np.array([sbf["nav1"][p] for p in prns])
     sfb1 = np.array([eph[p].sfb[0] for p in prns])

@@ -32,6 +32,7 @@ from gps_sdr_tpu_torch.ops.cacode import ca_code_table
 from gps_sdr_tpu_torch.ops.loops import loop_coefficients
 from gps_sdr_tpu_torch.ops.track_chunk import (ChunkSpec, raise_on_fault,
                                                track_chunk)
+from gps_sdr_tpu_torch.utils.device import resolve_device
 
 Q32 = 4294967296.0  # 2**32
 _REC_FIELDS = ("corr", "code_err", "carr_err", "code_freq", "carr_freq",
@@ -137,7 +138,9 @@ def init_track_state(cfg: ReceiverConfig, code_delays, fine_freqs,
                      device=None) -> TrackState:
     """Initial state from acquisition results.  File-pointer convention of
     trackingCT.m:63 / trackingCT_POS_updated.m:108-110: start at absolute
-    sample skip·S + S − codedelay + 1."""
+    sample skip·S + S − codedelay + 1.  Tensors on `device` (the card when
+    None)."""
+    device = resolve_device(device)
     S = cfg.signal.samples_per_ms
     delays = np.asarray(code_delays, np.int64)
     n = len(delays)
@@ -196,7 +199,9 @@ def state_from_records(records: TrackRecords, rows, carr_freq_basis,
     """The carry as it was after record row `rows[ch]` of each channel:
     the Q32 phase round-trips through rem_phase and the loop-filter
     accumulators invert from the recorded frequencies
-    (dll = sign·(codeFreq − basis); pll = carrFreq − carrBasis)."""
+    (dll = sign·(codeFreq − basis); pll = carrFreq − carrBasis).  Tensors
+    on `device` (the card when None)."""
+    device = resolve_device(device)
     n = records.absolute_sample.shape[1]
     sel = (np.asarray(rows, np.int64), np.arange(n))
     code_freq = records.code_freq[sel]
@@ -219,7 +224,9 @@ def state_from_records(records: TrackRecords, rows, carr_freq_basis,
 
 
 def chip_tables(prns, device=None) -> torch.Tensor:
-    """(N, 1023) float32 ±1 codes, one row per channel."""
+    """(N, 1023) float32 ±1 codes, one row per channel, on `device` (the
+    card when None)."""
+    device = resolve_device(device)
     return torch.as_tensor(np.stack([ca_code_table()[int(p) - 1]
                                      for p in prns]),
                            dtype=torch.float32, device=device)

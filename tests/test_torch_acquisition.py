@@ -40,7 +40,7 @@ def results():
     vals = np.clip(np.round(vals), -127, 127).astype(np.int8)
     tcfg = convert.config_from_jax(CFG)
     ref = j_run(JSource.from_array(vals, CFG.file), CFG)
-    got = t_run(TSource.from_array(vals, tcfg.file), tcfg)
+    got = t_run(TSource.from_array(vals, tcfg.file), tcfg, device="cpu")
     return ref, got
 
 

@@ -43,7 +43,7 @@ def sky():
     t = TOW0 + rng.uniform(-30.0, 30.0, 6)
     j = JEph(**{k: np.asarray([e[k] for e in ephs], np.float64)
                 for k in JEph._fields})
-    return ephs, t, j, TEph.stack(ephs)
+    return ephs, t, j, TEph.stack(ephs, "cpu")
 
 
 def test_sv_pos_vel_clock(sky):

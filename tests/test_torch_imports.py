@@ -32,8 +32,40 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1) if " " in out.stdout.strip() \
         else (out.stdout.strip(), "")
-    assert int(n) >= 20, out.stdout
+    assert int(n) >= 25, out.stdout
     assert bad == "", f"port pulled in {bad}"
+
+
+@pytest.mark.parametrize("module", [
+    "gps_sdr_tpu_torch.ops.corr_bank", "gps_sdr_tpu_torch.ops._build",
+    "gps_sdr_tpu_torch.receiver.vt", "gps_sdr_tpu_torch.utils.device"])
+def test_walk_reaches_module(module):
+    """The walk above covers the modules of the vector-tracking slice."""
+    import pkgutil
+
+    import gps_sdr_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(
+        gps_sdr_tpu_torch.__path__, "gps_sdr_tpu_torch.")}
+    assert module in names
+
+
+def test_default_device_is_the_card_or_an_error():
+    """`device=None` means the CUDA card: on a machine without one,
+    `resolve_device(None)` and the entry points built on it raise and say
+    how to ask for the CPU; they never return the CPU silently."""
+    import torch
+
+    from gps_sdr_tpu_torch.tracking import chip_tables
+    from gps_sdr_tpu_torch.utils.device import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")).type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        chip_tables([1, 2])
 
 
 @pytest.mark.parametrize("path", ["gps_sdr_tpu_torch", "chip_smoke.py"])

@@ -6,10 +6,13 @@ rate (2.44 samples/chip) — written by the JAX `write_file_fast` into a
 temporary directory (never the shared .cache/).
 
 Both Receivers run acquisition → track_for_eph(31800) → decode(200) →
-usable_svs → ct_position(4000), each with its own artifact directory; the
-JAX one single-device (mesh=None).  The port tracks on the CPU through the
-plain version of the tracking kernel, the same arithmetic as the JAX "nco"
-scan up to float32 summation order (correlators ~3e-6 relative apart).
+usable_svs → ct_position(4000) → vt_position(600, ct 4000, from a start
+3.7 km off) → vt_position(200, the 29-tap bank), each with its own artifact
+directory; the JAX one single-device (mesh=None), its VT on the exact-NCO
+replica (what "auto" resolves to off the TPU).  The port tracks on the CPU
+through the plain version of the tracking kernel, the same arithmetic as the
+JAX "nco" scan up to float32 summation order (correlators ~3e-6 relative
+apart).
 
 That is not enough for identical trajectories over 32 s.  The loops round
 float64 NCO words to integers every block (carr_fp to one Q32 LSB, the
@@ -43,6 +46,7 @@ torch.set_num_threads(2)
 
 FS, F_IF = 2.5e6, 0.6e6
 EPH_MS, DECODE_OFFSET_MS, CT_MS = 31800, 200, 4000
+VT_MS, VT_MC_MS, VT_TAIL = 600, 200, 300
 
 
 @pytest.fixture(scope="module")
@@ -61,19 +65,26 @@ def runs(tmp_path_factory):
     path = str(root / "capture.bin")
     gs.write_file_fast(path, sc.DURATION_MS, noise_std=sc.NOISE_STD, seed=11)
     tcfg = convert.config_from_jax(cfg)
-    out = {"cfg": cfg, "tcfg": tcfg, "usr": usr}
+    out = {"cfg": cfg, "tcfg": tcfg, "usr": usr, "path": path}
     for tag, rx in (
             ("jax", JReceiver(cfg, JSource(path, cfg.file),
                               artifact_dir=str(root / "jax"), mesh=None)),
             ("torch", TReceiver(tcfg, TSource(path, tcfg.file),
-                                artifact_dir=str(root / "torch")))):
+                                artifact_dir=str(root / "torch"),
+                                device="cpu"))):
         acq = rx.acquisition()
         rec = rx.track_for_eph(n_ms=EPH_MS)
         eph, sbf = rx.decode(start_offset_ms=DECODE_OFFSET_MS)
         usable = rx.usable_svs()
         ct_rec, nav = rx.ct_position(n_ms=CT_MS)
+        init = usr + np.array([3000.0, -2000.0, 1500.0])
+        vt_trk, vt_sol = rx.vt_position(n_ms=VT_MS, ct_n_ms=CT_MS,
+                                        init_pos_ecef=init)
+        mc_trk, mc_sol = rx.vt_position(n_ms=VT_MC_MS, ct_n_ms=CT_MS,
+                                        init_pos_ecef=init, multicorr=True)
         out[tag] = dict(acq=acq, rec=rec, eph=eph, sbf=sbf, usable=usable,
-                        ct_rec=ct_rec, nav=nav, dir=rx.dir)
+                        ct_rec=ct_rec, nav=nav, dir=rx.dir, vt_trk=vt_trk,
+                        vt_sol=vt_sol, mc_trk=mc_trk, mc_sol=mc_sol)
     return out
 
 
@@ -152,6 +163,99 @@ def test_ct_positioning_from_jax_records(runs):
     np.testing.assert_allclose(got["usr_vel"], ref["usr_vel"], rtol=0,
                                atol=1e-6)
     np.testing.assert_array_equal(got["valid"], ref["valid"])
+
+
+def test_vt_fixes_agree(runs):
+    """Both VDFLLs hold the same fix from the same kind of warm start (each
+    from its own CT records, which split onto different noise paths, see
+    the module docstring): median distance between the two position series
+    over the settled tail under 12 m, the bound of
+    tests/test_e2e_vt.py::test_vt_pallas_replica_converges; medians of the
+    error against truth within 10 m of each other."""
+    j, t = runs["jax"]["vt_sol"], runs["torch"]["vt_sol"]
+    assert t.usr_pos.shape == j.usr_pos.shape == (VT_MS, 3)
+    for sol in (t, runs["torch"]["vt_trk"]):
+        for name, arr in vars(sol).items():
+            assert np.all(np.isfinite(arr)), name
+    dist = np.linalg.norm(t.usr_pos - j.usr_pos, axis=1)[VT_TAIL:]
+    assert np.median(dist) < 12.0, np.median(dist)
+    err_t = np.linalg.norm(t.usr_pos - runs["usr"], axis=1)[VT_TAIL:]
+    err_j = np.linalg.norm(j.usr_pos - runs["usr"], axis=1)[VT_TAIL:]
+    assert abs(np.median(err_t) - np.median(err_j)) < 10.0
+    assert np.median(err_t) < 35.0, np.median(err_t)
+    assert np.all(t.valid[VT_TAIL:].sum(axis=1) >= 4)
+    np.testing.assert_array_equal(t.valid, j.valid)
+    print(f"VT parity: median distance {np.median(dist):.3f} m, max "
+          f"{np.max(dist):.3f} m; median error torch {np.median(err_t):.2f}"
+          f" m, jax {np.median(err_j):.2f} m")
+
+
+def test_vt_records_have_the_jax_schema(runs):
+    j = convert.vt_records_to_numpy(convert.vt_records_from_jax(
+        runs["jax"]["vt_trk"]))
+    t = convert.vt_records_to_numpy(runs["torch"]["vt_trk"])
+    assert t.keys() == j.keys()
+    for k in t:
+        assert t[k].shape == j[k].shape and t[k].dtype == j[k].dtype, k
+    js = convert.vt_solutions_to_numpy(convert.vt_solutions_from_jax(
+        runs["jax"]["vt_sol"]))
+    ts = convert.vt_solutions_to_numpy(runs["torch"]["vt_sol"])
+    assert ts.keys() == js.keys()
+    for k in ts:
+        assert ts[k].shape == js[k].shape and ts[k].dtype == js[k].dtype, k
+    assert np.max(np.abs(runs["torch"]["vt_trk"].absolute_sample
+                         - runs["jax"]["vt_trk"].absolute_sample)) <= 1
+
+
+def test_vt_multicorr_bank(runs):
+    """The 29-tap bank through the same path: the full bank is recorded and
+    the loop closes on taps 4 / 14 / 24 (±0.5 chip and prompt)."""
+    from gps_sdr_tpu_torch.receiver.vt import VTParams
+    j, t = runs["jax"], runs["torch"]
+    n = len(sc.SCN_PRNS)
+    assert t["mc_trk"].corr.shape == j["mc_trk"].corr.shape \
+        == (VT_MC_MS, n, 29, 2)
+    p = VTParams.multicorr()
+    assert (p.i_early, p.i_prompt, p.i_late) == (4, 14, 24)
+    corr = t["mc_trk"].corr
+    mag = np.hypot(corr[..., 0], corr[..., 1]).mean(axis=(0, 1))   # (29,)
+    assert int(np.argmax(mag)) == p.i_prompt
+    # the ±0.5-chip taps sit at half the prompt's triangle
+    for i in (p.i_early, p.i_late):
+        assert 0.35 < mag[i] / mag[p.i_prompt] < 0.65, mag[i] / mag[14]
+    # the same loop as the 3-tap bank: both runs track the same samples
+    np.testing.assert_array_equal(
+        t["mc_trk"].absolute_sample,
+        t["vt_trk"].absolute_sample[:VT_MC_MS])
+    dist = np.linalg.norm(t["mc_sol"].usr_pos - j["mc_sol"].usr_pos, axis=1)
+    assert np.median(dist[100:]) < 12.0, np.median(dist[100:])
+
+
+def test_position_dispatches_on_mode(runs):
+    """`Receiver.position`: mode 2 is the VT stage, mode 0 the CT stage
+    (both served from the artifacts here); mode 1 is not ported."""
+    import dataclasses
+    tcfg = runs["tcfg"]
+    src = TSource(runs["path"], tcfg.file)
+    init = runs["usr"] + np.array([3000.0, -2000.0, 1500.0])
+    rx = TReceiver(tcfg, src, artifact_dir=runs["torch"]["dir"],
+                   device="cpu")
+    assert tcfg.solu.mode == 2 and tcfg.cmn.vt_enable
+    trk, sol = rx.position(n_ms=VT_MS, ct_n_ms=CT_MS, init_pos_ecef=init)
+    np.testing.assert_array_equal(sol.usr_pos,
+                                  runs["torch"]["vt_sol"].usr_pos)
+    for mode, want in ((0, "ct"), (1, None)):
+        cfg_m = dataclasses.replace(
+            tcfg, solu=dataclasses.replace(tcfg.solu, mode=mode))
+        rx_m = TReceiver(cfg_m, src, artifact_dir=runs["torch"]["dir"],
+                         device="cpu")
+        if want is None:
+            with pytest.raises(NotImplementedError):
+                rx_m.position(n_ms=CT_MS)
+        else:
+            _, nav = rx_m.position(n_ms=CT_MS)
+            np.testing.assert_array_equal(nav.usr_pos,
+                                          runs["torch"]["nav"].usr_pos)
 
 
 def test_artifacts_share_the_jax_stems(runs):

@@ -42,7 +42,7 @@ def signals():
     t = tsyn.GeometrySignal(convert.config_from_jax(CFG),
                             [tsyn.GeometrySV(prn=p, eph=e, amplitude=a)
                              for p, e, a in zip(PRNS, ephs, AMPS)],
-                            usr, TOW0, **kw)
+                            usr, TOW0, device="cpu", **kw)
     return j, t
 
 
@@ -89,5 +89,6 @@ def test_generate_if_samples_noise_free():
                               code_delay_samples=2345.0, phase0_rad=0.3)]
     svs_t = [tsyn.SyntheticSV(**vars(s)) for s in svs_j]
     ref = jsyn.generate_if_samples(CFG, svs_j, 25)
-    got = tsyn.generate_if_samples(convert.config_from_jax(CFG), svs_t, 25)
+    got = tsyn.generate_if_samples(convert.config_from_jax(CFG), svs_t, 25,
+                                   device="cpu")
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-9)

@@ -89,7 +89,7 @@ def _run_both(capture, kind, n_ms, chunk_ms=1000, replica="nco"):
                               n_ms)
     # the port starts from the JAX package's own initial state
     trec, tstate = t_run(TIFSampleSource.from_array(vals, tcfg.file), tcfg,
-                         prns, convert.track_state_from_jax(jstate),
+                         prns, convert.track_state_from_jax(jstate, "cpu"),
                          getattr(TTrackParams, kind)(tcfg), n_ms,
                          chunk_ms=chunk_ms)
     if replica == "nco":
@@ -168,7 +168,8 @@ def test_plain_chunk_chaining_exact(capture, epl_pair):
     tcfg = convert.config_from_jax(cfg)
     delays, fine = _init(cfg)
     rec77, st77 = t_run(TIFSampleSource.from_array(vals, tcfg.file), tcfg,
-                        [sv["prn"] for sv in SVS], t_init(tcfg, delays, fine),
+                        [sv["prn"] for sv in SVS],
+                        t_init(tcfg, delays, fine, "cpu"),
                         TTrackParams.epl(tcfg), N_MS, chunk_ms=77)
     for f in ("corr", "code_freq", "carr_freq", "num_sample", "rem_chip",
               "rem_phase", "absolute_sample"):
@@ -188,7 +189,8 @@ def test_state_from_records_matches_jax_and_resumes(capture, epl_pair):
     _, fine = _init(cfg)
     rows = np.array([149, 149])
     jn = convert.track_state_to_numpy(j_state(jrec, rows, fine))
-    tst = t_state(convert.records_from_jax(jrec), rows, fine)
+    tst = t_state(convert.records_from_jax(jrec), rows, fine,
+                  device="cpu")
     tn = convert.track_state_to_numpy(tst)
     assert tn.keys() == jn.keys()
     for f in tn:
@@ -196,7 +198,8 @@ def test_state_from_records_matches_jax_and_resumes(capture, epl_pair):
         np.testing.assert_array_equal(tn[f], jn[f], err_msg=f)
     rest, _ = t_run(TIFSampleSource.from_array(vals, tcfg.file), tcfg,
                     [sv["prn"] for sv in SVS],
-                    t_state(trec, rows, fine), TTrackParams.epl(tcfg), 150)
+                    t_state(trec, rows, fine, device="cpu"),
+                    TTrackParams.epl(tcfg), 150)
     np.testing.assert_array_equal(rest.num_sample, trec.num_sample[150:])
     np.testing.assert_array_equal(rest.absolute_sample,
                                   trec.absolute_sample[150:])
@@ -213,9 +216,9 @@ def test_wrapper_routes_cpu_to_plain_and_validates(capture):
     vals, cfg = capture
     tcfg = convert.config_from_jax(cfg)
     delays, fine = _init(cfg)
-    state = t_init(tcfg, delays, fine)
+    state = t_init(tcfg, delays, fine, "cpu")
     spec = TTrackParams.epl(tcfg).chunk_spec(tcfg)
-    chips = chip_tables([sv["prn"] for sv in SVS])
+    chips = chip_tables([sv["prn"] for sv in SVS], "cpu")
     start = int(state.ptr.min())
     n = int(state.ptr.max()) - start + spec.chunk_samples(10)
     raw = torch.from_numpy(vals.reshape(-1, 2)[start:start + n].copy())
@@ -246,8 +249,8 @@ def test_cuda_kernel_matches_plain():
     prns = [sv["prn"] for sv in SVS]
     for kind, n_ms in (("epl", N_MS), ("pos_multicorr", 120)):
         params = getattr(TTrackParams, kind)(tcfg)
-        ref, _ = t_run(src, tcfg, prns, t_init(tcfg, delays, fine), params,
-                       n_ms)
+        ref, _ = t_run(src, tcfg, prns, t_init(tcfg, delays, fine, "cpu"),
+                       params, n_ms)
         before = tc.track_chunk.launches
         out, _ = t_run(src, tcfg, prns, t_init(tcfg, delays, fine, dev),
                        params, n_ms)
