@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA receiver (gps_sdr_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile-vt]
+    python3 chip_smoke.py [--profile-vt] [--ref-1000]
 
 Phases, each printing one line of evidence:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   both kernels (track_chunk.cu, corr_bank.cu) built together from
-   gps_sdr_tpu_torch/csrc/ into build/.
+   the kernel sources (track_chunk.cu; corr_bank.cu, which holds both
+   banks) built together from gps_sdr_tpu_torch/csrc/ into build/.
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shape (58 MHz, 8 channels), on the same inputs:
    - track_chunk: 1000 E/P/L blocks and 300 blocks of the 25-tap bank, plus
@@ -19,23 +19,44 @@ Phases, each printing one line of evidence:
      length; the fault flag for a window past the chunk; times of the
      kernel (as split over CTAs and on one CTA per channel), of the plain
      version and of an empty launch.
+   - correlator_bank_windows (phase 2c): the bank over windows already cut
+     out, at 3 taps and the 25-tap CT-POS grid, blocks of 1 ms and 10 ms,
+     with and without DC removal, on 1 CTA per channel and the default
+     split, from the tracked state and from spread states; equal bit for
+     bit to correlator_bank on the same samples; the fault flag for a
+     block length outside the window; times of the kernel, the wrapper,
+     the window cut, the plain version, and of other splits at 10 ms.
+   - the same 100 blocks of 10 ms through tracking.track_scan (windows
+     bank per block) and through track_chunk (one launch): integer chain
+     identical; times of both; track_scan's operations and launches per
+     block (torch.profiler).
 3. The main path: a 41 s, 58 MHz int8 capture of 8 SVs (transmit-time
    geometry + atmosphere, the repo's e2e workload) synthesized on the card
    into host memory, then Receiver.acquisition → track_for_eph(39800) →
    decode(1000) → usable_svs → ct_position(3000) → vt_position(1000), with
    both kernels' launches counted.
+4. The reference's 10 ms schedules on the same capture, a second Receiver
+   with its own artifact directory: acquisition →
+   track_for_eph_reference (500 ms at 1 ms, re-track, 40000 ms at 10 ms
+   negated) → decode(1000) → usable_svs → ct_position(3000 rows with the
+   per-channel pdi 1 → 10 ms switch), held against phase 3's ephemerides,
+   with all three kernels' launches counted.
 
 Then one JSON line on the kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (exit code ≠ 0).
 With --profile-vt, phase 3 also traces 100 ms of vector tracking with
-torch.profiler and prints where the host and the card spend it.
+torch.profiler and prints where the host and the card spend it.  With
+--ref-1000, the eph schedule is run once more at the reference's own
+1000 + 38000 ms and what it decodes is printed, without a gate.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -45,9 +66,10 @@ import time
 import numpy as np
 import torch
 
+from gps_sdr_tpu_torch import tracking
 from gps_sdr_tpu_torch.config import (CommonConfig, FileConfig,
                                       ReceiverConfig, SignalConfig,
-                                      SolutionConfig)
+                                      SolutionConfig, TrackConfig)
 from gps_sdr_tpu_torch.geo.coords import llh2xyz
 from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris, sv_pos_vel_clock
 from gps_sdr_tpu_torch.io.ifdata import DeviceStager, IFSampleSource
@@ -57,7 +79,7 @@ from gps_sdr_tpu_torch.io.synthetic import (GeometrySignal, GeometrySV,
 from gps_sdr_tpu_torch.ops import _build
 from gps_sdr_tpu_torch.ops import corr_bank as cb
 from gps_sdr_tpu_torch.ops import track_chunk as tc
-from gps_sdr_tpu_torch.pipeline import Receiver
+from gps_sdr_tpu_torch.pipeline import Receiver, detect_bit_transition
 from gps_sdr_tpu_torch.receiver.vt import VTParams
 from gps_sdr_tpu_torch.tracking import (TrackParams, chip_tables,
                                         init_track_state, run_tracking)
@@ -69,6 +91,16 @@ FS, F_IF = 58e6, 4.58e6
 CAPTURE_MS = 41000
 EPH_MS, DECODE_OFFSET_MS, CT_MS, VT_MS = 39800, 1000, 3000, 1000
 VT_SETTLE_MS = 500                      # VT gates read rows from here on
+# phase 4, the reference's schedules (initParameters.m:66-68).  The 1 ms
+# phases run 500 ms, not 1000, with the bit transition looked for from row
+# 300: phase (c) restarts each channel at the re-based pointer
+# ptr0 + (n1 + countinx)·S (trackingCT.m:403), which drops the code-Doppler
+# drift of phases (a)/(b), |Doppler| / 1540 chips per second; after 1000 ms
+# this workload's PRN 22 (2.9 kHz) and PRN 7 (−2.5 kHz) would restart 1.9
+# and 1.7 chips off, past the ±1.5 chips the ±0.5-chip discriminator sees.
+REF_1MS, REF_10MS, REF_MIN_TRANSITION, REF_CT_ROWS = 500, 40000, 300, 3000
+PDI_SWITCH_MS = 1000
+SCAN_BLOCKS, SCAN_LEAD_MS = 100, 80     # the both-trackers segment
 PRNS = (3, 7, 16, 22, 27, 1, 8, 30)
 AMPS = (3.0, 2.6, 2.8, 2.4, 2.7, 2.2, 3.2, 2.0)
 AMP_SCALE = 0.09
@@ -220,6 +252,29 @@ def union_samples(start: torch.Tensor, stop: torch.Tensor) -> int:
     return total
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """{kernel<template arguments>: what ptxas used} from `nvcc -Xptxas -v`
+    output; the mangled entry names are read only as far as the kernels'
+    own template lists (int..., then a for int8 or s for int16)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            k = re.search(r"\d+([a-z_]+?)I((?:Li\d+E)+)([as])EEv", mangled)
+            if k:
+                ints = re.findall(r"Li(\d+)E", k.group(2))
+                name = (f"{k.group(1)}<{','.join(ints)},"
+                        f"{'int8' if k.group(3) == 'a' else 'int16'}>")
+            else:
+                plain = re.findall(r"\d+([a-z]+(?:_[a-z]+)+)E", mangled)
+                name = plain[-1] if plain else mangled
+        elif name and "Used" in line and "registers" in line:
+            out[name] = line.split(":", 1)[1].strip()
+            name = None
+    return out
+
+
 def phase_device_and_build() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -234,9 +289,7 @@ def phase_device_and_build() -> str:
     evidence("build", wall_s=round(wall, 3), libraries={
         name: dict(library=os.path.relpath(path, ROOT),
                    build_s=round(secs, 3),
-                   ptxas=[ln.split(":", 1)[1].strip()
-                          for ln in log.splitlines()
-                          if "Used" in ln and "registers" in ln])
+                   ptxas=ptxas_by_kernel(log))
         for name, (path, log, secs) in built.items()})
     return smi
 
@@ -254,7 +307,7 @@ def phase_kernel_vs_plain(dev: torch.device) -> tuple:
     svs = [SyntheticSV(prn=p, amplitude=AMP_SCALE * a, doppler_hz=float(d),
                        code_delay_samples=float(c))
            for p, a, d, c in zip(PRNS, AMPS, dopp, delay)]
-    n_ms = 1000 + 60
+    n_ms = 1000 + 100     # 1000 blocks, or SCAN_LEAD_MS + 100 blocks of 10 ms
     values = quantize_iq(generate_if_samples(cfg, svs, n_ms, NOISE_STD,
                                              seed=5, device=dev))
     src = IFSampleSource.from_array(values, cfg.file)
@@ -299,6 +352,9 @@ def phase_kernel_vs_plain(dev: torch.device) -> tuple:
         res[kind] = m
         if kind == "epl":
             tracked = end
+            # the state the both-trackers segment starts from
+            _, early = tc.track_chunk(raw, start, state, chips, spec,
+                                      SCAN_LEAD_MS)
     # chunk chaining: 77 ms chunks against one 1000 ms chunk, both kernel
     params = TrackParams.epl(cfg)
     one, _ = run_tracking(src, cfg, PRNS,
@@ -319,7 +375,7 @@ def phase_kernel_vs_plain(dev: torch.device) -> tuple:
     res["chain77"] = m
     evidence("kernel_vs_plain", bounds=BOUNDS, **res)
     return res, dict(cfg=cfg, src=src, chips=chips, stager=stager,
-                     tracked=tracked)
+                     tracked=tracked, early=early)
 
 
 def _bank_case(raw, start, nco, chips, taps, blk, remove_dc, scale):
@@ -449,6 +505,246 @@ def phase_bank_vs_plain(dev: torch.device, shared: dict) -> dict:
     if res["fault_flag"] != n:
         raise AssertionError(f"fault flag {res['fault_flag']}, expected {n}")
     evidence("bank_vs_plain", **res)
+    return res
+
+
+def _windows_case(raw, start, nco, chips, taps, blk, remove_dc, scale):
+    """One comparison of the bank over windows: kernel (default split and
+    one CTA per channel) against plain on the same windows, and against
+    correlator_bank reading the same samples at ptr_off; raises past the
+    bound or on any differing bit between the two kernels."""
+    dev = raw.device
+    tap_fp = cb.tap_offsets_fp(taps, dev)
+    off = nco["ptr"] - start
+    cutter = cb.WindowCutter(raw, blk)
+    win = cutter(off)
+    words = (nco["rem_chip"], nco["code_freq"], nco["phase_fp"],
+             nco["carr_fp"], nco["num"])
+    args = (win, *words, chips, tap_fp, FS, remove_dc)
+    out, fault = cb.correlator_bank_windows(*args)
+    one, fault1 = cb.correlator_bank_windows(*args, n_split=1)
+    ref, fault_ref = cb.correlator_bank_windows_reference(*args)
+    fetched, fault_b2 = cb.correlator_bank(raw, off, *words, chips, tap_fp,
+                                           FS, blk, remove_dc)
+    for f in (fault, fault1, fault_ref, fault_b2):
+        cb.raise_on_fault(f)
+    err = max(float((out - ref).abs().max()), float((one - ref).abs().max()))
+    m = dict(max_abs_err=err,
+             bitwise=bool(torch.equal(out, ref) and torch.equal(one, ref)),
+             equals_fetching_bank=bool(torch.equal(out, fetched)),
+             finite=bool(torch.isfinite(out).all()))
+    if not (m["finite"] and m["equals_fetching_bank"]) \
+            or err > BANK_BOUND_REL * scale:
+        raise AssertionError(
+            f"correlator_bank_windows out of bounds ({len(taps)} taps, "
+            f"blk {blk}, remove_dc={remove_dc}): {m}, scale {scale}")
+    m["args"] = args
+    m["cut"] = (cutter, off)
+    return m
+
+
+def phase_windows_vs_plain(dev: torch.device, shared: dict) -> dict:
+    """correlator_bank_windows against its plain version and against
+    correlator_bank at 58 MHz and 8 channels: blocks of 1 and 10 ms, 3 taps
+    and the 25-tap CT-POS grid, DC removal on and off, from the NCO state
+    the tracker reached (block lengths nominal −2..+2) and from states
+    spread over code phase, carrier and window position."""
+    cfg, src, chips = shared["cfg"], shared["src"], shared["chips"]
+    st = shared["early"]
+    n = st.ptr.shape[0]
+    S = cfg.signal.samples_per_ms
+    i64, f64 = torch.int64, torch.float64
+    rng = np.random.default_rng(23)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def carr_fp_of(carr_freq):
+        return torch.round(carr_freq / FS * tc.Q32).to(i64)
+
+    start = int(st.ptr.min()) - S
+    raw = shared["stager"].stage(src.read_iq_values(start, 14 * S))
+    jitter = t([(i % 5) - 2 for i in range(n)], i64)
+    dopp = rng.uniform(-5000.0, 5000.0, n)
+    spread_freq = t(cfg.signal.code_freq_basis * (1 + dopp / cfg.signal.fc),
+                    f64)
+    spread_rem = t(rng.uniform(-0.4, 1.4, n), f64)
+    grids = (("epl3", TrackParams.epl(cfg).taps),
+             ("ct25", TrackParams.pos_multicorr(cfg).taps))
+
+    res = dict(bound_rel=BANK_BOUND_REL, cases={}, n_split=cb.default_split(n))
+    timed = {}
+    for pdi in (1, 10):
+        blk = -(-(pdi * S + 256) // 128) * 128
+        n_chips = 1023.0 * pdi
+        locked = dict(
+            ptr=st.ptr, rem_chip=st.rem_chip, code_freq=st.code_freq,
+            phase_fp=st.phase_fp.to(i64), carr_fp=carr_fp_of(st.carr_freq),
+            num=torch.ceil((n_chips - st.rem_chip)
+                           / (st.code_freq / FS)).to(i64) + jitter)
+        spread = dict(
+            ptr=t(start + rng.integers(0, 2 * S, n), i64),
+            rem_chip=spread_rem, code_freq=spread_freq,
+            phase_fp=t(rng.integers(-2 ** 31, 2 ** 31, n), i64),
+            carr_fp=carr_fp_of(t(F_IF + dopp, f64)),
+            num=torch.ceil((n_chips - spread_rem)
+                           / (spread_freq / FS)).to(i64) + jitter)
+        # the scale of this block length's comparisons: the prompt of the
+        # tracked state
+        p, _ = cb.correlator_bank_reference(
+            raw, locked["ptr"] - start, locked["rem_chip"],
+            locked["code_freq"], locked["phase_fp"], locked["carr_fp"],
+            locked["num"], chips, cb.tap_offsets_fp(grids[0][1], dev), FS,
+            blk)
+        scale = float(torch.hypot(p[:, 1, 0], p[:, 1, 1]).mean())
+        res[f"prompt_scale_{pdi}ms"] = scale
+        for name, taps in grids:
+            for remove_dc in (False, True):
+                for tag, nco in (("locked", locked), ("spread", spread)):
+                    m = _windows_case(raw, start, nco, chips, taps, blk,
+                                      remove_dc, scale)
+                    args, (cutter, off) = m.pop("args"), m.pop("cut")
+                    if tag == "locked":
+                        flag = cb.new_fault(dev)
+                        m["kernel_ms"] = timed_graph_ms(
+                            lambda: cb.correlator_bank_windows(
+                                *args, fault=flag), 10)
+                        m["kernel_1cta_ms"] = timed_graph_ms(
+                            lambda: cb.correlator_bank_windows(
+                                *args, fault=flag, n_split=1), 5, 5)
+                        m["wrapper_ms"] = timed_ms(
+                            lambda: cb.correlator_bank_windows(
+                                *args, fault=flag), 50)
+                        m["plain_ms"] = timed_ms(
+                            lambda: cb.correlator_bank_windows_reference(
+                                *args), 3)
+                        m["cut_ms"] = timed_graph_ms(
+                            lambda: cutter(off), 10)
+                        m["cut_eager_ms"] = timed_ms(
+                            lambda: cutter(off), 50)
+                        m["num"] = nco["num"]
+                        timed[(name, pdi, remove_dc)] = m
+                    res["cases"][f"{name}_{pdi}ms_dc{int(remove_dc)}_{tag}"] \
+                        = m
+    res["max_abs_err"] = max(m["max_abs_err"] for m in res["cases"].values())
+    res["bitwise"] = all(m["bitwise"] for m in res["cases"].values())
+
+    # the new path's shape: 10 ms blocks, 3 taps, int8 (no DC removal).
+    # Bound: each window's `num` samples read once, the code tables, the
+    # NCO words, the result written once
+    nums = {key: m.pop("num") for key, m in timed.items()}
+    head = timed[("epl3", 10, False)]
+    n_samples = int(nums[("epl3", 10, False)].sum())
+    head.update(bound_ms(
+        n_samples * 2 * raw.element_size() + chips.numel() * 4 + n * 5 * 8
+        + 3 * 8 + n * 3 * 2 * 4,
+        n_samples * (OPS_PER_SAMPLE + OPS_PER_TAP * 3)))
+    res["main_shape"] = head
+    # more CTAs per channel than the default at 10 ms (a part is then
+    # fewer than 256 rows: one segment per CTA)
+    args = _windows_case(raw, start, locked, chips, grids[0][1], blk, False,
+                         scale)["args"]
+    flag = cb.new_fault(dev)
+    res["split_10ms_epl3_ms"] = {
+        str(k): timed_graph_ms(lambda: cb.correlator_bank_windows(
+            *args, fault=flag, n_split=k), 10) for k in (16, 32, 64, 128)}
+
+    # nothing is clamped: a block length outside [1, blk] raises the flag
+    for bad_num, ch in ((blk + 1, n - 1), (0, 2)):
+        num = locked["num"].clone()
+        num[ch] = bad_num
+        out, fault = cb.correlator_bank_windows(
+            args[0], *args[1:5], num, *args[6:])
+        try:
+            cb.raise_on_fault(fault)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError(f"num={bad_num} raised no fault")
+        if int(fault[0]) != ch + 1 or bool(out[ch].any()):
+            raise AssertionError(f"fault flag {int(fault[0])} for num="
+                                 f"{bad_num} in channel {ch}")
+    res["fault_flags"] = "raised"
+    evidence("windows_vs_plain", **res)
+    return res
+
+
+def phase_both_trackers(dev: torch.device, shared: dict) -> dict:
+    """The same SCAN_BLOCKS blocks of 10 ms (negated outputs, the eph
+    schedule's phase (c)) from one state through `tracking.track_scan` and
+    through the whole-chunk kernel `track_chunk`.  Gate: the integer chain
+    identical.  Also what one block of track_scan costs the host
+    (torch.profiler: operations, kernel launches, device busy time)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, src, chips = shared["cfg"], shared["src"], shared["chips"]
+    st = shared["early"]
+    spec = TrackParams.epl(cfg, pdi_ms=10, negate_iq=True).chunk_spec(cfg)
+    start = int(st.ptr.min())
+    length = int(st.ptr.max()) - start + spec.chunk_samples(SCAN_BLOCKS)
+    raw = shared["stager"].stage(src.read_iq_values(start, length))
+
+    def scan():
+        return tracking.track_scan(raw, start, st, chips, spec, SCAN_BLOCKS)
+
+    def chunk():
+        return tc.track_chunk(raw, start, st, chips, spec, SCAN_BLOCKS)
+
+    a, _ = scan()
+    b, _ = chunk()
+    tc.raise_on_fault(a)
+    tc.raise_on_fault(b)
+    same = bool(torch.equal(a["num_sample"], b["num_sample"])
+                and torch.equal(a["absolute_sample"], b["absolute_sample"]))
+    scale = float(b["corr"].abs().mean())
+    dphi = torch.remainder(a["rem_phase"] - b["rem_phase"] + math.pi,
+                           2 * math.pi) - math.pi
+    res = dict(
+        blocks=SCAN_BLOCKS, pdi_ms=10, integer_chain_identical=same,
+        bitwise=all(bool(torch.equal(a[f], b[f])) for f in b),
+        corr_abs=float((a["corr"] - b["corr"]).abs().max()), corr_scale=scale,
+        code_freq_hz=float((a["code_freq"] - b["code_freq"]).abs().max()),
+        carr_freq_hz=float((a["carr_freq"] - b["carr_freq"]).abs().max()),
+        rem_chip=float((a["rem_chip"] - b["rem_chip"]).abs().max()),
+        phase_rad=float(dphi.abs().max()))
+    if not same:
+        raise AssertionError(f"track_scan and track_chunk disagree on the "
+                             f"integer block chain: {res}")
+
+    def wall_ms(fn, repeat):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(repeat):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / repeat * 1e3
+
+    res["track_scan_ms"] = wall_ms(scan, 3)
+    res["track_chunk_ms"] = wall_ms(chunk, 3)
+    res["track_scan_ms_per_block"] = res["track_scan_ms"] / SCAN_BLOCKS
+    res["track_chunk_ms_per_block"] = res["track_chunk_ms"] / SCAN_BLOCKS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        scan()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+
+    def dev_us(r):
+        return getattr(r, "self_device_time_total",
+                       getattr(r, "self_cuda_time_total", 0.0))
+
+    launches = sum(r.count for r in rows
+                   if r.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    res.update(
+        aten_calls_per_block=sum(r.count for r in rows
+                                 if r.key.startswith("aten::"))
+        / SCAN_BLOCKS,
+        kernel_launches_per_block=launches / SCAN_BLOCKS,
+        device_busy_ms_per_block=sum(dev_us(r) for r in rows)
+        / SCAN_BLOCKS / 1e3,
+        top_device=[[r.key[:60], r.count, round(dev_us(r) / SCAN_BLOCKS, 2)]
+                    for r in sorted(rows, key=lambda r: -dev_us(r))[:6]])
+    evidence("both_trackers", **res)
     return res
 
 
@@ -595,6 +891,173 @@ def phase_main_path(dev: torch.device, workdir: str,
         eph_tracking_channel_samples_per_s=EPH_MS * S * len(acq.sv)
         / stages["eph_tracking_s"])
     evidence("main_path", **res)
+    return res, dict(src=src, usr=usr, eph=rx.decode()[0],
+                     usable=[int(p) for p in usable])
+
+
+def restart_offsets_chips(rec, sw_rows) -> list:
+    """Per channel, how far phase (c) of the eph schedule restarts from
+    where phase (b) stood at its switch row [chips]: the re-based pointer
+    (trackingCT.m:403) drops the code-Doppler drift of the 1 ms phases."""
+    out = []
+    for ch, sw in enumerate(sw_rows):
+        rebased = rec.absolute_sample[sw, ch] - rec.num_sample[sw, ch]
+        out.append(round(float(
+            (rebased - rec.absolute_sample[sw - 1, ch]) * 1.023e6 / FS), 3))
+    return out
+
+
+def reference_schedule_1000(dev: torch.device, workdir: str,
+                            main: dict) -> None:
+    """The eph schedule at the reference's own 1000 + 38000 ms (what the
+    41 s capture holds), for the record: restart offsets and what decodes.
+    No gate: after 1000 ms some channels restart beyond the discriminator's
+    reach."""
+    cfg = dataclasses.replace(
+        cfg_e2e(), file=FileConfig(name="e2e58ref1000", skip_ms=0),
+        track=TrackConfig(ms_eph_1ms=1000, ms_eph_10ms=38000))
+    rx = Receiver(cfg, main["src"], artifact_dir=workdir, device=dev)
+    rec = rx.track_for_eph_reference()
+    acq = rx.acquisition()
+    cnt = [detect_bit_transition(rec.p_i[:1000, ch])
+           for ch in range(len(acq.sv))]
+    eph, _ = rx.decode(start_offset_ms=DECODE_OFFSET_MS)
+    evidence("reference_schedule_1000", prns=[int(p) for p in acq.sv],
+             countinx=cnt,
+             restart_offset_chips=restart_offsets_chips(
+                 rec, [1000 + c for c in cnt]),
+             usable_svs=[int(p) for p in rx.usable_svs()],
+             first_tow={int(p): (e.tow[0] if e.tow else None)
+                        for p, e in eph.items()})
+
+
+def phase_reference_schedules(dev: torch.device, workdir: str,
+                              main: dict) -> dict:
+    """The reference's 10 ms schedules at full width on phase 3's capture,
+    through a second Receiver that shares nothing with the first but the
+    samples: acquisition → track_for_eph_reference → decode →
+    usable_svs → ct_position with the per-channel pdi 1 → 10 ms switch."""
+    cfg = dataclasses.replace(
+        cfg_e2e(), file=FileConfig(name="e2e58ref", skip_ms=0),
+        track=TrackConfig(ms_eph_1ms=REF_1MS, ms_eph_10ms=REF_10MS,
+                          ct_pdi_switch_ms=PDI_SWITCH_MS))
+    S = cfg.signal.samples_per_ms
+    usr = main["usr"]
+    rx = Receiver(cfg, main["src"], artifact_dir=workdir, device=dev)
+    stages = {}
+
+    def stage(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t
+        return out
+
+    def counts():
+        return (tc.track_chunk.launches, cb.correlator_bank_windows.launches,
+                cb.correlator_bank.launches)
+
+    tc.track_chunk.launches = 0
+    cb.correlator_bank.launches = 0
+    cb.correlator_bank_windows.launches = 0
+    acq = stage("acquisition_s", rx.acquisition)
+    rec = stage("eph_reference_s", lambda: rx.track_for_eph_reference(
+        min_transition_index=REF_MIN_TRANSITION))
+    eph_counts = counts()
+    eph, _ = stage("decode_s",
+                   lambda: rx.decode(start_offset_ms=DECODE_OFFSET_MS))
+    usable = stage("usable_svs_s", rx.usable_svs)
+    ct_rec, nav = stage("ct_switch_wls_s", lambda: rx.ct_position(
+        n_ms=REF_CT_ROWS, init_pos_ecef=usr))
+    chunk_launches, windows_launches, bank_launches = counts()
+
+    n_ch = len(acq.sv)
+    if sorted(int(p) for p in acq.sv) != sorted(PRNS):
+        raise AssertionError(f"acquisition found {acq.sv}, expected {PRNS}")
+    # the schedule's own countinx, from its phase (a)/(b) prefix
+    cnt = np.array([detect_bit_transition(rec.p_i[:REF_1MS, ch],
+                                          min_index=REF_MIN_TRANSITION)
+                    for ch in range(n_ch)])
+    t_max = REF_1MS + int(cnt.max()) + REF_10MS
+    if rec.corr.shape != (t_max, n_ch, 3, 2):
+        raise AssertionError(f"eph record {rec.corr.shape}, expected "
+                             f"{(t_max, n_ch, 3, 2)}")
+    for ch in range(n_ch):
+        sw = REF_1MS + int(cnt[ch])
+        for f in ("corr", "num_sample", "absolute_sample"):
+            tail = getattr(rec, f)[sw:sw + REF_10MS, ch]
+            runs = tail.reshape(REF_10MS // 10, 10, *tail.shape[1:])
+            if not np.array_equal(runs, runs[:, :1].repeat(10, 1)):
+                raise AssertionError(f"channel {ch}: {f} past row {sw} is "
+                                     "not 10 ms blocks replicated x10")
+        if np.abs(rec.num_sample[sw:sw + REF_10MS, ch] - 10 * S).max() > 100 \
+                or np.abs(rec.num_sample[:sw, ch] - S).max() > 10:
+            raise AssertionError(f"channel {ch}: block lengths off")
+    if [int(p) for p in usable] != main["usable"] \
+            or len(usable) != len(PRNS):
+        raise AssertionError(f"usable SVs {usable}, phase 3 had "
+                             f"{main['usable']}")
+    # every decoded field equal to the 1 ms schedule's; the fields that
+    # index record rows (where a subframe was found) are reported apart
+    row_fields = ("sfb", "sfb1", "updatetime_ms")
+    rows_equal = True
+    for p in usable:
+        a, b = dataclasses.asdict(eph[p]), dataclasses.asdict(main["eph"][p])
+        diff = [k for k in a if k not in row_fields and a[k] != b[k]]
+        if diff:
+            raise AssertionError(f"PRN {p}: ephemeris fields {diff} differ "
+                                 "from the 1 ms schedule's")
+        rows_equal &= all(a[k] == b[k] for k in row_fields)
+    # the CT stage: pdi 1 then 10 per channel, read back from the blocks
+    chans = [acq.channel_index(p) for p in usable]
+    sw = PDI_SWITCH_MS + rx.countinx()[chans]
+    pdi_rows = np.where(np.abs(ct_rec.num_sample - S) < 100, 1, 10)
+    rows = np.arange(REF_CT_ROWS)[:, None]
+    if ct_rec.corr.shape != (REF_CT_ROWS, len(usable), 3, 2) or \
+            not np.array_equal(pdi_rows, np.where(rows < sw[None, :], 1, 10)) \
+            or np.abs(ct_rec.num_sample - pdi_rows * S).max() > 100:
+        raise AssertionError("CT record is not pdi 1 then 10 per channel")
+    for r in (rec, ct_rec):
+        if not all(np.isfinite(getattr(r, f)).all()
+                   for f in ("corr", "code_freq", "carr_freq", "rem_chip")):
+            raise AssertionError("non-finite tracking records")
+    err = np.linalg.norm(nav.usr_pos - usr, axis=1)
+    if len(err) == 0 or not np.all(np.isfinite(nav.usr_pos)):
+        raise AssertionError("no finite WLS fixes")
+    med = float(np.median(err))
+    if med >= WLS_GATE_M:
+        raise AssertionError(f"WLS median error {med:.1f} m >= {WLS_GATE_M}")
+    # launches: one track_chunk per chunk of the 1 ms phases, one windows
+    # bank per block of 10 ms, the fetching bank never
+    chunks = lambda n_ms: -(-n_ms // 1000)
+    want_eph = (chunks(REF_1MS) + chunks(REF_1MS + int(cnt.max())),
+                REF_10MS // 10, 0)
+    want_all = (want_eph[0] + chunks(int(sw.max())),
+                want_eph[1] + REF_CT_ROWS - int(sw.min()), 0)
+    if eph_counts != want_eph or \
+            (chunk_launches, windows_launches, bank_launches) != want_all:
+        raise AssertionError(
+            f"launches (track_chunk, windows bank, fetching bank): eph stage "
+            f"{eph_counts}, expected {want_eph}; whole path "
+            f"{(chunk_launches, windows_launches, bank_launches)}, expected "
+            f"{want_all}")
+    n10_blocks = want_all[1]
+    res = dict(
+        stages=stages, countinx_eph=cnt.tolist(),
+        restart_offset_chips=restart_offsets_chips(
+            rec, [REF_1MS + int(c) for c in cnt]),
+        countinx_ct=(sw - PDI_SWITCH_MS).tolist(),
+        eph_rows=t_max, usable_svs=[int(p) for p in usable],
+        ephemerides_equal_phase3=True,
+        subframe_rows_equal_phase3=bool(rows_equal), wls_epochs=int(len(err)),
+        wls_median_err_m=med, wls_max_err_m=float(np.max(err)),
+        track_chunk_launches=chunk_launches,
+        correlator_bank_windows_launches=windows_launches,
+        correlator_bank_launches=bank_launches,
+        eph_10ms_ms_per_block=stages["eph_reference_s"] / (REF_10MS // 10)
+        * 1e3,
+        blocks_of_10ms=n10_blocks)
+    evidence("reference_schedules", **res)
     return res
 
 
@@ -609,23 +1072,34 @@ def main() -> int:
     phase_device_and_build()
     kvp, shared = phase_kernel_vs_plain(dev)
     bank = phase_bank_vs_plain(dev, shared)
+    win = phase_windows_vs_plain(dev, shared)
+    phase_both_trackers(dev, shared)
     del shared
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_",
-                               dir=os.path.join(ROOT, "build"))
+    workdirs = [tempfile.mkdtemp(prefix="chip_smoke_",
+                                 dir=os.path.join(ROOT, "build"))
+                for _ in range(3)]
     try:
-        main_res = phase_main_path(dev, workdir,
-                                   "--profile-vt" in sys.argv[1:])
+        main_res, main_out = phase_main_path(dev, workdirs[0],
+                                             "--profile-vt" in sys.argv[1:])
+        ref_res = phase_reference_schedules(dev, workdirs[1], main_out)
+        if "--ref-1000" in sys.argv[1:]:
+            reference_schedule_1000(dev, workdirs[2], main_out)
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+        for d in workdirs:
+            shutil.rmtree(d, ignore_errors=True)
     head = bank["main_shape"]
+    whead = win["main_shape"]
     evidence("vt_bank_share", bank_kernel_ms=head["kernel_ms"],
              launches=main_res["correlator_bank_launches"],
              vt_ekf_s=main_res["stages"]["vt_ekf_s"],
              share=head["kernel_ms"] * 1e-3
              * main_res["correlator_bank_launches"]
              / main_res["stages"]["vt_ekf_s"])
-    # no single PyTorch call computes either function: library_ms is null
+    # no single PyTorch call computes any of the three: library_ms is null.
+    # `launches` of a kernel is the count over the path that runs it: the
+    # 1 ms scalar path and the VT path of phase 3, the 10 ms schedules of
+    # phase 4
     print(json.dumps({"kernels": [{
         "name": "track_chunk", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/track_chunk.cu",
@@ -643,6 +1117,14 @@ def main() -> int:
         "max_abs_err": bank["max_abs_err"],
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None}, {
+        "name": "correlator_bank_windows", "route": "cuda",
+        "source": "gps_sdr_tpu_torch/csrc/corr_bank.cu",
+        "replaces": "gps_sdr_tpu/ops/pallas_correlator.py:122",
+        "launches": ref_res["correlator_bank_windows_launches"],
+        "max_abs_err": win["max_abs_err"],
+        "ms": whead["kernel_ms"], "plain_ms": whead["plain_ms"],
+        "bound_ms": whead["bound_ms"], "bound_by": whead["bound_by"],
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,16 @@
 // Nothing is clamped: a window that leaves the chunk, a block length outside
 // [1, blk], or an NCO word that is not finite raises *fault to 1 + channel
 // (atomicMax) and that channel's result is zero; the host raises.
+//
+// A second entry point, corr_bank_windows_kernel, replaces the TPU kernel
+// gps_sdr_tpu/ops/pallas_correlator.py::correlator_bank (_corr_kernel): the
+// same bank over windows that the caller has already cut out, one (blk, 2)
+// window per channel, which is what the per-block tracker (tracking.py
+// track_scan) runs for every coherent block longer than 2 ms.  It shares
+// bank_block below, so its sums are those of the fetching entry bit for bit.
+// A 10 ms block at 58 MHz is 1.16 MB per channel (int8): 8 channels move
+// 9.3 MB, 2.8 us at the card's memory rate, so bytes bound it, not the
+// launch; the (channel, part) grid is what spreads 8 channels over the SMs.
 
 #include "nco_common.cuh"
 
@@ -45,24 +55,18 @@ struct Params {
   double fs;
 };
 
-// NT > 0: tap count fixed at compile time; NT == 0: runtime p.ntaps.
-template <int NT, int THREADS, typename RawT>
-__global__ void __launch_bounds__(THREADS)
-corr_bank_kernel(Params p, const RawT* __restrict__ raw,
-                 const float* __restrict__ chips,
-                 const long long* __restrict__ tap_fp,
-                 const long long* __restrict__ ptr_off,
-                 const double* __restrict__ rem_chip,
-                 const double* __restrict__ code_freq,
-                 const long long* __restrict__ phase_fp,
-                 const long long* __restrict__ carr_fp_in,
-                 const long long* __restrict__ num_in,
-                 float* __restrict__ corr, double* __restrict__ partial,
-                 int* __restrict__ fault) {
+// One channel's part of one block: `x` points at the block's first IQ pair,
+// the block is known to be valid.  NT > 0: tap count fixed at compile time;
+// NT == 0: runtime p.ntaps.  Every thread of the CTA calls it.
+template <int NT, int THREADS, typename PairT>
+__device__ __forceinline__ void bank_block(
+    const Params& p, const PairT* __restrict__ x, int num, double rem,
+    double step_c, unsigned phase0, unsigned carr_fp,
+    const float* __restrict__ chips, const long long* __restrict__ tap_fp,
+    float* __restrict__ corr, double* __restrict__ partial) {
   constexpr int T = NT > 0 ? NT : kMaxTaps;
   constexpr int kWarps = THREADS / 32;
   static_assert(THREADS % 128 == 0, "a thread keeps one r-phasor");
-  typedef typename PairOf<RawT>::type PairT;
   const int ntaps = NT > 0 ? NT : p.ntaps;
   const int ch = blockIdx.x, part = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -77,25 +81,8 @@ corr_bank_kernel(Params p, const RawT* __restrict__ raw,
   float* out_f = corr + (long long)ch * 2 * ntaps;
   double* out_d = partial + ((long long)ch * p.n_split + part) * 2 * ntaps;
 
-  const long long off = ptr_off[ch];
-  const long long num_ll = num_in[ch];
-  const double rem = rem_chip[ch];
-  const double step_c = code_freq[ch] / p.fs;  // chips per sample
-  if (!(num_ll >= 1 && num_ll <= (long long)p.blk) || off < 0 ||
-      off + num_ll > p.n_raw || !isfinite(rem) || !isfinite(step_c)) {
-    if (tid == 0 && part == 0) atomicMax(fault, ch + 1);
-    if (tid < 2 * ntaps) {
-      if (p.n_split == 1) out_f[tid] = 0.f; else out_d[tid] = 0.0;
-    }
-    return;  // uniform over the CTA
-  }
-  const int num = (int)num_ll;
   const long long step_fp = __double2ll_rn(step_c * kQ32);
   const long long base_fp = __double2ll_rn(rem * kQ32);
-  const unsigned phase0 = (unsigned)(unsigned long long)phase_fp[ch];
-  const unsigned carr_fp = (unsigned)(unsigned long long)carr_fp_in[ch];
-  const PairT* x = reinterpret_cast<const PairT*>(raw) + off;
-
   // this part's 128-sample rows
   const int rows = (num + 127) >> 7;
   const int rows_per = (rows + p.n_split - 1) / p.n_split;
@@ -170,6 +157,82 @@ corr_bank_kernel(Params p, const RawT* __restrict__ raw,
   }
 }
 
+// A refused channel: the flag raised to 1 + channel, zeros written.  The
+// condition is uniform over the CTA, which returns after this.
+__device__ __forceinline__ void refuse_block(const Params& p, float* corr,
+                                             double* partial, int* fault) {
+  const int ch = blockIdx.x, part = blockIdx.y, tid = threadIdx.x;
+  if (tid == 0 && part == 0) atomicMax(fault, ch + 1);
+  if (tid < 2 * p.ntaps) {
+    if (p.n_split == 1)
+      corr[(long long)ch * 2 * p.ntaps + tid] = 0.f;
+    else
+      partial[((long long)ch * p.n_split + part) * 2 * p.ntaps + tid] = 0.0;
+  }
+}
+
+// The fetching entry: each channel's window starts at ptr_off in the chunk.
+template <int NT, int THREADS, typename RawT>
+__global__ void __launch_bounds__(THREADS)
+corr_bank_kernel(Params p, const RawT* __restrict__ raw,
+                 const float* __restrict__ chips,
+                 const long long* __restrict__ tap_fp,
+                 const long long* __restrict__ ptr_off,
+                 const double* __restrict__ rem_chip,
+                 const double* __restrict__ code_freq,
+                 const long long* __restrict__ phase_fp,
+                 const long long* __restrict__ carr_fp,
+                 const long long* __restrict__ num_in,
+                 float* __restrict__ corr, double* __restrict__ partial,
+                 int* __restrict__ fault) {
+  typedef typename PairOf<RawT>::type PairT;
+  const int ch = blockIdx.x;
+  const long long off = ptr_off[ch];
+  const long long num = num_in[ch];
+  const double rem = rem_chip[ch];
+  const double step_c = code_freq[ch] / p.fs;  // chips per sample
+  if (!(num >= 1 && num <= (long long)p.blk) || off < 0 ||
+      off + num > p.n_raw || !isfinite(rem) || !isfinite(step_c)) {
+    refuse_block(p, corr, partial, fault);
+    return;
+  }
+  bank_block<NT, THREADS, PairT>(
+      p, reinterpret_cast<const PairT*>(raw) + off, (int)num, rem, step_c,
+      (unsigned)(unsigned long long)phase_fp[ch],
+      (unsigned)(unsigned long long)carr_fp[ch], chips, tap_fp, corr, partial);
+}
+
+// The windows entry: channel ch's window is win[ch * blk : (ch + 1) * blk],
+// cut out by the caller, so only the block length can be out of range.
+template <int NT, int THREADS, typename RawT>
+__global__ void __launch_bounds__(THREADS)
+corr_bank_windows_kernel(Params p, const RawT* __restrict__ win,
+                         const float* __restrict__ chips,
+                         const long long* __restrict__ tap_fp,
+                         const double* __restrict__ rem_chip,
+                         const double* __restrict__ code_freq,
+                         const long long* __restrict__ phase_fp,
+                         const long long* __restrict__ carr_fp,
+                         const long long* __restrict__ num_in,
+                         float* __restrict__ corr,
+                         double* __restrict__ partial,
+                         int* __restrict__ fault) {
+  typedef typename PairOf<RawT>::type PairT;
+  const int ch = blockIdx.x;
+  const long long num = num_in[ch];
+  const double rem = rem_chip[ch];
+  const double step_c = code_freq[ch] / p.fs;  // chips per sample
+  if (!(num >= 1 && num <= (long long)p.blk) || !isfinite(rem) ||
+      !isfinite(step_c)) {
+    refuse_block(p, corr, partial, fault);
+    return;
+  }
+  bank_block<NT, THREADS, PairT>(
+      p, reinterpret_cast<const PairT*>(win) + (long long)ch * p.blk, (int)num,
+      rem, step_c, (unsigned)(unsigned long long)phase_fp[ch],
+      (unsigned)(unsigned long long)carr_fp[ch], chips, tap_fp, corr, partial);
+}
+
 // A channel's partial sums added in part order, rounded to float32 once.
 __global__ void corr_bank_finish(int n_split, int n_out,
                                  const double* __restrict__ partial,
@@ -184,6 +247,7 @@ __global__ void corr_bank_finish(int n_split, int n_out,
 
 __global__ void empty_kernel() {}
 
+// ptr_off == nullptr selects the windows entry (raw is then the windows).
 template <typename RawT>
 void launch(const Params& p, const void* raw, const float* chips,
             const long long* tap_fp, const long long* ptr_off,
@@ -193,12 +257,18 @@ void launch(const Params& p, const void* raw, const float* chips,
             cudaStream_t stream) {
   const RawT* r = static_cast<const RawT*>(raw);
   const dim3 grid(p.n_ch, p.n_split);
-#define BANK_LAUNCH(NT)                                                     \
-  corr_bank_kernel<NT, 256, RawT><<<grid, 256, 0, stream>>>(                \
-      p, r, chips, tap_fp, ptr_off, rem_chip, code_freq, phase_fp, carr_fp, \
-      num, corr, partial, fault)
+#define BANK_LAUNCH(NT)                                                       \
+  if (ptr_off)                                                                \
+    corr_bank_kernel<NT, 256, RawT><<<grid, 256, 0, stream>>>(                \
+        p, r, chips, tap_fp, ptr_off, rem_chip, code_freq, phase_fp, carr_fp, \
+        num, corr, partial, fault);                                           \
+  else                                                                        \
+    corr_bank_windows_kernel<NT, 256, RawT><<<grid, 256, 0, stream>>>(        \
+        p, r, chips, tap_fp, rem_chip, code_freq, phase_fp, carr_fp, num,     \
+        corr, partial, fault)
   switch (p.ntaps) {
     case 3: BANK_LAUNCH(3); break;    // E/P/L
+    case 25: BANK_LAUNCH(25); break;  // the CT-POS multicorrelator grid
     case 29: BANK_LAUNCH(29); break;  // the VT multicorrelator grid
     default: BANK_LAUNCH(0); break;
   }
@@ -206,6 +276,25 @@ void launch(const Params& p, const void* raw, const float* chips,
   if (p.n_split > 1)
     corr_bank_finish<<<p.n_ch, 2 * kMaxTaps, 0, stream>>>(
         p.n_split, 2 * p.ntaps, partial, corr);
+}
+
+int launch_checked(Params p, const void* raw, int raw_int16,
+                   const float* chips, const long long* tap_fp,
+                   const long long* ptr_off, const double* rem_chip,
+                   const double* code_freq, const long long* phase_fp,
+                   const long long* carr_fp, const long long* num, float* corr,
+                   double* partial, int* fault, void* stream) {
+  if (p.n_ch < 1 || p.ntaps < 1 || p.ntaps > kMaxTaps || p.n_split < 1 ||
+      p.n_split > 65535 || p.blk < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (raw_int16)
+    launch<int16_t>(p, raw, chips, tap_fp, ptr_off, rem_chip, code_freq,
+                    phase_fp, carr_fp, num, corr, partial, fault, st);
+  else
+    launch<int8_t>(p, raw, chips, tap_fp, ptr_off, rem_chip, code_freq,
+                   phase_fp, carr_fp, num, corr, partial, fault, st);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -223,21 +312,31 @@ extern "C" int corr_bank_launch(
     const long long* carr_fp, const long long* num, float* corr,
     double* partial, int* fault, int n_ch, int ntaps, int n_split, int blk,
     int remove_dc, double fs, void* stream) {
+  if (!ptr_off) return (int)cudaErrorInvalidValue;
   Params p;
   p.n_raw = n_raw;
   p.n_ch = n_ch; p.ntaps = ntaps; p.n_split = n_split; p.blk = blk;
   p.remove_dc = remove_dc; p.fs = fs;
-  if (n_ch < 1 || ntaps < 1 || ntaps > kMaxTaps || n_split < 1 ||
-      n_split > 65535 || blk < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (raw_int16)
-    launch<int16_t>(p, raw, chips, tap_fp, ptr_off, rem_chip, code_freq,
-                    phase_fp, carr_fp, num, corr, partial, fault, st);
-  else
-    launch<int8_t>(p, raw, chips, tap_fp, ptr_off, rem_chip, code_freq,
-                   phase_fp, carr_fp, num, corr, partial, fault, st);
-  return (int)cudaGetLastError();
+  return launch_checked(p, raw, raw_int16, chips, tap_fp, ptr_off, rem_chip,
+                        code_freq, phase_fp, carr_fp, num, corr, partial,
+                        fault, stream);
+}
+
+// The bank over windows already cut out: win (n_ch, blk, 2) int8 or int16,
+// contiguous; the other arguments as corr_bank_launch.
+extern "C" int corr_bank_windows_launch(
+    const void* win, int win_int16, const float* chips,
+    const long long* tap_fp, const double* rem_chip, const double* code_freq,
+    const long long* phase_fp, const long long* carr_fp, const long long* num,
+    float* corr, double* partial, int* fault, int n_ch, int ntaps,
+    int n_split, int blk, int remove_dc, double fs, void* stream) {
+  Params p;
+  p.n_raw = (long long)n_ch * blk;
+  p.n_ch = n_ch; p.ntaps = ntaps; p.n_split = n_split; p.blk = blk;
+  p.remove_dc = remove_dc; p.fs = fs;
+  return launch_checked(p, win, win_int16, chips, tap_fp, nullptr, rem_chip,
+                        code_freq, phase_fp, carr_fp, num, corr, partial,
+                        fault, stream);
 }
 
 // One launch of a kernel that does nothing: the card's launch floor, which

@@ -125,8 +125,10 @@ def _records(corr, code_err, carr_err, code_freq, carr_freq, num, rem_chip,
         absolute_sample=abs_sample, fault=fault)
 
 
-def _check_inputs(raw: torch.Tensor, state, chips: torch.Tensor,
-                  spec: ChunkSpec, n_steps: int, chunk_start: int) -> None:
+def check_inputs(raw: torch.Tensor, state, chips: torch.Tensor,
+                 spec: ChunkSpec, n_steps: int, chunk_start: int) -> None:
+    """Raise unless `raw`, `state` and `chips` are what a tracker of one
+    chunk takes and the chunk covers `n_steps` blocks of every channel."""
     if raw.dtype not in (torch.int8, torch.int16) or raw.dim() != 2 \
             or raw.shape[1] != 2:
         raise ValueError(f"raw must be (L, 2) int8/int16 IQ, got "
@@ -230,6 +232,95 @@ def correlate_blocks(x_all: torch.Tensor, off: torch.Tensor,
     return torch.einsum("ntb,nbc->ntc", code.to(f64), iq.to(f64)).to(f32)
 
 
+class BlockNCO(NamedTuple):
+    """What a bank is given for one block: (N,) tensors per channel."""
+
+    ptr: torch.Tensor        # int64 absolute sample of the block's start
+    num: torch.Tensor        # int64 block length
+    n_exact: torch.Tensor    # float64 block length before rounding
+    rem_chip: torch.Tensor   # float64 code phase at the start [chips]
+    code_freq: torch.Tensor  # float64 [Hz]
+    step: torch.Tensor       # float64 chips per sample, code_freq / fs
+    phase: torch.Tensor      # int64 holding the int32 Q32 carrier phase
+    carr_fp: torch.Tensor    # int64 holding the int32 Q32 phase step
+
+
+class LoopConsts(NamedTuple):
+    """Per-segment constants of `block_step` on one device."""
+
+    fs: torch.Tensor         # float64 scalar
+    sign: torch.Tensor       # float32 scalar
+    gains: Tuple[float, float, float, float]
+
+    @staticmethod
+    def make(spec: ChunkSpec, device) -> "LoopConsts":
+        # divisors as device tensors: a true division on every device (CUDA
+        # turns division by a host scalar into a reciprocal multiply)
+        return LoopConsts(
+            fs=torch.tensor(spec.fs, dtype=torch.float64, device=device),
+            sign=torch.tensor(spec.sign, dtype=torch.float32, device=device),
+            gains=spec.loop_gains())
+
+
+def block_step(st, spec: ChunkSpec, k: LoopConsts, bank):
+    """One coherent block of every channel: block length and carrier word
+    from the NCOs, the correlators from `bank(BlockNCO) → (N, T, 2)`, then
+    the NCO advance, the discriminators and both loop filters.
+
+    `st` is the TrackState-like carry with `phase_fp` held in int64.  The
+    one arithmetic of both trackers: `track_chunk_reference` gives it the
+    bank that reads the chunk, `tracking.track_scan` the bank over windows.
+    Returns (new carry, record row, the BlockNCO the bank was given).
+    """
+    f64, i64 = torch.float64, torch.int64
+    n_chips = spec.n_chips
+    ie, ip, il = spec.epl
+    dll_a, dll_b, pll_a, pll_b = k.gains
+    # ---- block length from the code NCO (tracking.py:252-256) ----
+    step = st.code_freq / k.fs
+    n_exact = (n_chips - st.rem_chip) / step
+    num = (torch.ceil(n_exact) if spec.ceil_rounding
+           else torch.round(n_exact)).to(i64)
+    carr_fp = _wrap32(torch.round(st.carr_freq / k.fs * Q32).to(i64))
+    nco = BlockNCO(st.ptr, num, n_exact, st.rem_chip, st.code_freq, step,
+                   st.phase_fp, carr_fp)
+    corr = bank(nco) * k.sign
+
+    rem = num.to(f64) * step + st.rem_chip - n_chips
+    phase = _wrap32(st.phase_fp + num * carr_fp)
+
+    # ---- discriminators + 2nd-order loop filters (tracking.py:410-430)
+    code_err = dll_discriminator(corr[:, ie, 0], corr[:, ie, 1],
+                                 corr[:, il, 0], corr[:, il, 1])
+    dll = loop_filter_step(st.dll_nco, st.dll_last, code_err, dll_a, dll_b)
+    code_freq = spec.code_freq_basis + spec.dll_freq_sign * dll
+    carr_err = pll_discriminator(corr[:, ip, 0], corr[:, ip, 1])
+    pll = loop_filter_step(st.pll_nco, st.pll_last, carr_err, pll_a, pll_b)
+    carr_freq = st.carr_freq_basis + pll
+
+    ptr = st.ptr + num
+    new = st._replace(ptr=ptr, rem_chip=rem, code_freq=code_freq,
+                      carr_freq=carr_freq, phase_fp=phase, dll_nco=dll,
+                      dll_last=code_err, pll_nco=pll, pll_last=carr_err)
+    row = (corr, code_err, carr_err, code_freq, carr_freq, num, rem, phase,
+           ptr)
+    return new, row, nco
+
+
+def stack_rows(rows, fault: torch.Tensor, n: int, ntaps: int
+               ) -> Dict[str, torch.Tensor]:
+    """The record dict from the rows of `block_step`, (T, N, …) per field."""
+    dev = fault.device
+    f32, f64, i64 = torch.float32, torch.float64, torch.int64
+    if rows:
+        cols = [torch.stack(c) for c in zip(*rows)]
+    else:
+        cols = [torch.zeros((0, n, ntaps, 2), dtype=f32, device=dev)] + [
+            torch.zeros((0, n), dtype=dt, device=dev)
+            for dt in (f64, f64, f64, f64, i64, f64, i64, i64)]
+    return _records(*cols, fault)
+
+
 def track_chunk_reference(raw: torch.Tensor, chunk_start: int, state,
                           chips: torch.Tensor, spec: ChunkSpec,
                           n_steps: int):
@@ -245,77 +336,33 @@ def track_chunk_reference(raw: torch.Tensor, chunk_start: int, state,
     whose block window left the chunk (0 when none did).
     """
     dev = raw.device
-    f32, f64, i64 = torch.float32, torch.float64, torch.int64
-    x_all = raw.to(f32)
+    x_all = raw.to(torch.float32)
     L = x_all.shape[0]
     n = state.ptr.shape[0]
-    n_chips = spec.n_chips
-    ie, ip, il = spec.epl
     tap_fp = torch.as_tensor(spec.tap_fp(), device=dev)
     grid = BlockGrid.make(spec.blk, dev)
-    # divisors as device tensors: a true division on every device (CUDA
-    # turns division by a host scalar into a reciprocal multiply)
-    fs_t = torch.tensor(spec.fs, dtype=f64, device=dev)
-    sign = torch.tensor(spec.sign, dtype=f32, device=dev)
-    dll_a, dll_b, pll_a, pll_b = spec.loop_gains()
+    k = LoopConsts.make(spec, dev)
 
-    ptr, rem, code_freq, carr_freq = (state.ptr, state.rem_chip,
-                                      state.code_freq, state.carr_freq)
-    basis = state.carr_freq_basis
-    phase = state.phase_fp.to(i64)
-    dll_nco, dll_last = state.dll_nco, state.dll_last
-    pll_nco, pll_last = state.pll_nco, state.pll_last
+    def bank(b: BlockNCO) -> torch.Tensor:
+        return correlate_blocks(x_all, b.ptr - chunk_start, b.num,
+                                b.rem_chip, b.step, b.phase, b.carr_fp,
+                                chips, tap_fp, spec.remove_dc, grid)
 
-    ntaps = len(spec.taps)
-    rows = []                        # per block: the record fields below
+    st = state._replace(phase_fp=state.phase_fp.to(torch.int64))
+    rows = []                        # per block: the record fields
     bad = torch.zeros(n, dtype=torch.bool, device=dev)
-
-    for t in range(n_steps):
-        # ---- block length from the code NCO (tracking.py:252-256) ----
-        step = code_freq / fs_t
-        n_exact = (n_chips - rem) / step
-        num = (torch.ceil(n_exact) if spec.ceil_rounding
-               else torch.round(n_exact)).to(i64)
-        off = ptr - chunk_start
-        bad |= (off < 0) | (off + num > L) | ~torch.isfinite(n_exact)
-        carr_fp = _wrap32(torch.round(carr_freq / fs_t * Q32).to(i64))
-        corr = correlate_blocks(x_all, off, num, rem, step, phase, carr_fp,
-                                chips, tap_fp, spec.remove_dc, grid) * sign
-
-        rem_new = num.to(f64) * step + rem - n_chips
-        phase_new = _wrap32(phase + num * carr_fp)
-
-        # ---- discriminators + 2nd-order loop filters (tracking.py:410-430)
-        code_err = dll_discriminator(corr[:, ie, 0], corr[:, ie, 1],
-                                     corr[:, il, 0], corr[:, il, 1])
-        dll = loop_filter_step(dll_nco, dll_last, code_err, dll_a, dll_b)
-        code_freq = spec.code_freq_basis + spec.dll_freq_sign * dll
-        carr_err = pll_discriminator(corr[:, ip, 0], corr[:, ip, 1])
-        pll = loop_filter_step(pll_nco, pll_last, carr_err, pll_a, pll_b)
-        carr_freq = basis + pll
-
-        ptr = ptr + num
-        rem, phase = rem_new, phase_new
-        dll_nco, dll_last, pll_nco, pll_last = dll, code_err, pll, carr_err
-        rows.append((corr, code_err, carr_err, code_freq, carr_freq, num,
-                     rem, phase, ptr))
+    for _ in range(n_steps):
+        st, row, b = block_step(st, spec, k, bank)
+        off = b.ptr - chunk_start
+        bad |= (off < 0) | (off + b.num > L) | ~torch.isfinite(b.n_exact)
+        rows.append(row)
 
     first = torch.nonzero(bad)
     fault = torch.zeros(1, dtype=torch.int32, device=dev)
     if first.numel():
         fault[0] = int(first[0, 0]) + 1
-    new_state = type(state)(
-        ptr=ptr, rem_chip=rem, code_freq=code_freq, carr_freq=carr_freq,
-        carr_freq_basis=basis, phase_fp=phase.to(torch.int32),
-        dll_nco=dll_nco, dll_last=dll_last, pll_nco=pll_nco,
-        pll_last=pll_last)
-    if rows:
-        cols = [torch.stack(c) for c in zip(*rows)]
-    else:
-        cols = [torch.zeros((0, n, ntaps, 2), dtype=f32, device=dev)] + [
-            torch.zeros((0, n), dtype=dt, device=dev)
-            for dt in (f64, f64, f64, f64, i64, f64, i64, i64)]
-    return _records(*cols, fault), new_state
+    new_state = st._replace(phase_fp=st.phase_fp.to(torch.int32))
+    return stack_rows(rows, fault, n, len(spec.taps)), new_state
 
 
 # ---------------------------------------------------------------- build
@@ -396,7 +443,7 @@ def track_chunk(raw: torch.Tensor, chunk_start: int, state,
     diverged loop) sets `records["fault"]`, which `raise_on_fault` turns
     into an error when the records are read back.
     """
-    _check_inputs(raw, state, chips, spec, n_steps, chunk_start)
+    check_inputs(raw, state, chips, spec, n_steps, chunk_start)
     if raw.device.type == "cpu":
         return track_chunk_reference(raw, chunk_start, state, chips, spec,
                                      n_steps)
@@ -412,5 +459,6 @@ def raise_on_fault(records: Dict[str, torch.Tensor]) -> None:
     """Raise if a block's window left its chunk (see `track_chunk`)."""
     ch = int(records["fault"][0])
     if ch:
-        raise RuntimeError(f"track_chunk: channel {ch - 1}'s block window "
-                           "left the chunk (loop diverged or chunk too short)")
+        raise RuntimeError(f"tracking: channel {ch - 1}'s block window left "
+                           "the chunk or its block length left the window "
+                           "(loop diverged or chunk too short)")

@@ -18,6 +18,7 @@ import tempfile
 from typing import Optional
 
 import numpy as np
+import torch
 
 from gps_sdr_tpu_torch import navdecode
 from gps_sdr_tpu_torch.acquisition import AcquisitionResult, run_acquisition
@@ -30,7 +31,7 @@ from gps_sdr_tpu_torch.receiver.vt import (VTParams, init_vt_state,
                                            run_vector_tracking)
 from gps_sdr_tpu_torch.tracking import (_REC_FIELDS, TrackParams,
                                         TrackRecords, init_track_state,
-                                        run_tracking)
+                                        run_tracking, state_from_records)
 from gps_sdr_tpu_torch.utils.device import resolve_device
 
 
@@ -70,6 +71,10 @@ class Receiver:
     Stage artifacts (mirroring SDR_main.m's .mat files):
       acquired_{name}_{skip}.npz    Acquired{sv,SNR,Doppler,codedelay,fineFreq}
       tckeph_{name}.npz             per-ms tracking records for nav decode
+      tckeph_ref_{name}_{n1}_{n10}_{min}.npz   the same from the reference's
+                                    3-phase schedule (its own stem: a
+                                    record is never taken for the other
+                                    schedule's)
       countinx_{name}.npz           per-channel first bit transition
       eph_{name}.pkl                {prn: EphemerisRecord} + sbf{nav1,sfb1}
       nacquired_{name}_{skip}.npz   acquisition fields of the usable SVs
@@ -164,6 +169,95 @@ class Receiver:
         self._save_records(stem, rec)
         return rec
 
+    def track_for_eph_reference(self, chunk_ms: int = 1000,
+                                min_transition_index: int = 600
+                                ) -> TrackRecords:
+        """The reference's 3-phase eph-decoding schedule (trackingCT.m):
+
+        (a) ms_eph_1ms ms at 1 ms from the acquisition pointer → the first
+            data-bit transition offset `countinx` (trackingCT.m:178-213)
+        (b) re-track ms_eph_1ms + countinx ms at 1 ms from the same pointer
+            (trackingCT.m:215-369)
+        (c) ms_eph_10ms ms at 10 ms with negated correlator outputs, each
+            block replicated ×10 into the per-ms record
+            (trackingCT.m:377-525)
+
+        All channels run in one batch per phase: (b) tracks every channel
+        to the latest switch row and each keeps its first n1 + countinx
+        rows; (c) resumes each channel's loop state from the (b) records at
+        its own switch row (`state_from_records`) with the re-based pointer
+        ptr0 + (n1 + countinx)·S (trackingCT.m:403).  Phase (c)'s blocks go
+        through `tracking.track_scan`.
+
+        The record is what `decode` consumes in place of `track_for_eph`'s.
+        Its artifact stem is keyed on the schedule (the JAX package shares
+        `tckeph_{name}.npz` between both schedules), so a later Receiver on
+        the same directory never loads one schedule's record as the
+        other's.
+        """
+        cfg = self.cfg
+        if self._eph_records is not None:
+            return self._eph_records
+        n1, n10 = cfg.track.ms_eph_1ms, cfg.track.ms_eph_10ms
+        stem = (f"tckeph_ref_{cfg.file.name}_{n1}_{n10}"
+                f"_{min_transition_index}.npz")
+        if self._have(stem):
+            self._eph_records = self._load_records(stem)
+            return self._eph_records
+        acq = self.acquisition()
+        S = cfg.signal.samples_per_ms
+        prns = [int(p) for p in acq.sv]
+        n_ch = len(prns)
+        params1 = TrackParams.epl(cfg)
+
+        def fresh_state():
+            return init_track_state(cfg, acq.code_delay, acq.fine_freq_hz,
+                                    self.device)
+
+        # (a) 1 ms tracking → countinx per channel
+        rec_a, _ = run_tracking(self.source, cfg, prns, fresh_state(),
+                                params1, n1, chunk_ms=chunk_ms)
+        cnt = np.array([detect_bit_transition(
+            rec_a.p_i[:, ch], min_index=min_transition_index)
+            for ch in range(n_ch)])
+        cnt_max = int(cnt.max())
+
+        # (b) re-track to the latest switch point
+        rec_b, _ = run_tracking(self.source, cfg, prns, fresh_state(),
+                                params1, n1 + cnt_max, chunk_ms=chunk_ms)
+
+        # (c) 10 ms blocks, negated, from per-channel re-based pointers;
+        # loop state resumed at each channel's switch row (countinx may be
+        # −1, then that is the row before the last of phase (a))
+        st_c = state_from_records(rec_b, n1 + cnt - 1, acq.fine_freq_hz,
+                                  params1.dll_freq_sign,
+                                  cfg.signal.code_freq_basis, self.device)
+        ptr0 = cfg.file.skip_ms * S + S - acq.code_delay.astype(np.int64) + 1
+        st_c = st_c._replace(ptr=torch.as_tensor(
+            ptr0 + (n1 + cnt) * S, dtype=torch.int64, device=self.device))
+        rec_c, _ = run_tracking(
+            self.source, cfg, prns, st_c,
+            TrackParams.epl(cfg, pdi_ms=10, negate_iq=True), n10,
+            chunk_ms=chunk_ms)
+
+        # merge: per channel, its own (b) prefix + the ×10-replicated (c)
+        # rows, edge-padded to the common length
+        t_max = n1 + cnt_max + n10
+        merged = {}
+        for f in _REC_FIELDS:
+            b, c = getattr(rec_b, f), np.repeat(getattr(rec_c, f), 10, axis=0)
+            rows = []
+            for ch in range(n_ch):
+                a = np.concatenate([b[:n1 + cnt[ch], ch], c[:, ch]])
+                pad = t_max - a.shape[0]
+                if pad:
+                    a = np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+                rows.append(a)
+            merged[f] = np.stack(rows, axis=1)
+        self._eph_records = TrackRecords(**merged)
+        self._save_records(stem, self._eph_records)
+        return self._eph_records
+
     def countinx(self, min_transition_index: int = 600) -> np.ndarray:
         """Per-channel first-bit-transition offsets, ordered like acq.sv
         (the reference persists these as countinx.mat, trackingCT.m:530)."""
@@ -220,27 +314,35 @@ class Receiver:
     def ct_position(self, n_ms: Optional[int] = None,
                     init_pos_ecef: Optional[np.ndarray] = None,
                     multicorr: Optional[bool] = None, chunk_ms: int = 1000,
-                    pdi_switch_ms: Optional[int] = None):
+                    pdi_switch_ms: Optional[int] = None,
+                    countinx: Optional[np.ndarray] = None):
         """Stage 5 (SDR_main.m:110-115): CT-POS tracking + WLS positioning.
 
         Re-tracks the usable SVs with the POS correlator configuration
         (the 25-tap bank if `multicorr`; default cmn.multicorr_ct), then
-        forms the WLS epochs.  The reference's per-channel pdi 1 → 10 ms
-        switch (`pdi_switch_ms`, cfg.track.ct_pdi_switch_ms) is not ported
-        yet.  Returns (TrackRecords, NavSolutions).
+        forms the WLS epochs.
+
+        `pdi_switch_ms` (default cfg.track.ct_pdi_switch_ms) turns on the
+        reference's per-channel coherent-integration switch
+        (trackingCT_POS_updated.m:183,294): channel ch runs pdi = 1 ms for
+        its first pdi_switch_ms + countinx[ch] record rows and pdi = 10 ms
+        after (those blocks go through `tracking.track_scan`); `n_ms` then
+        counts record rows, not signal ms.  `countinx` overrides the
+        detected offsets (ordered like the usable-SV list).
+        Returns (TrackRecords, NavSolutions).
         """
         cfg = self.cfg
         if multicorr is None:
             multicorr = cfg.cmn.multicorr_ct
         if pdi_switch_ms is None:
             pdi_switch_ms = cfg.track.ct_pdi_switch_ms
-        if pdi_switch_ms is not None:
-            raise NotImplementedError(
-                "the CT-POS pdi switch (pdi_switch_ms / "
-                "track.ct_pdi_switch_ms) is not ported yet")
         n_ms = n_ms or cfg.track.ms_ct_pos
         tag = "mc" if multicorr else "epl"
-        key = f"{tag}_{cfg.file.name}_{n_ms}_{self._init_token(init_pos_ecef)}"
+        key = (f"{tag}_{cfg.file.name}_{n_ms}"
+               + (f"_sw{pdi_switch_ms}" if pdi_switch_ms else "")
+               + ("" if countinx is None else
+                  "_c" + "_".join(str(int(c)) for c in countinx))
+               + f"_{self._init_token(init_pos_ecef)}")
         stem_t, stem_n = f"tckct_{key}.npz", f"navct_{key}.pkl"
         eph, sbf = self.decode()
         pos_svs = self.usable_svs()
@@ -258,12 +360,43 @@ class Receiver:
         chans = [acq.channel_index(p) for p in pos_svs]
         state = init_track_state(cfg, acq.code_delay[chans],
                                  acq.fine_freq_hz[chans], self.device)
-        params = (TrackParams.pos_multicorr(cfg) if multicorr
-                  else TrackParams.pos_epl(cfg))
-        rec, _ = run_tracking(self.source, cfg, pos_svs, state, params, n_ms,
-                              chunk_ms=chunk_ms)
+        mk = TrackParams.pos_multicorr if multicorr else TrackParams.pos_epl
+        params1 = mk(cfg)
+        if pdi_switch_ms is None:
+            rec, _ = run_tracking(self.source, cfg, pos_svs, state, params1,
+                                  n_ms, chunk_ms=chunk_ms)
+            pdi_rows = 1
+        else:
+            cnt = np.asarray(countinx if countinx is not None
+                             else self.countinx()[chans])
+            sw = pdi_switch_ms + cnt               # (N,) rows at pdi = 1
+            sw_max, sw_min = int(sw.max()), int(sw.min())
+            if n_ms <= sw_max:
+                raise ValueError(f"n_ms={n_ms} rows must exceed the last "
+                                 f"pdi switch at row {sw_max}")
+            rec1, _ = run_tracking(self.source, cfg, pos_svs, state, params1,
+                                   sw_max, chunk_ms=chunk_ms)
+            st2 = state_from_records(rec1, sw - 1, acq.fine_freq_hz[chans],
+                                     params1.dll_freq_sign,
+                                     cfg.signal.code_freq_basis, self.device)
+            # run_tracking counts signal ms: (n_ms − sw_min)·10 of them at
+            # pdi = 10 are n_ms − sw_min blocks, one record row each, the
+            # most any channel's merge below consumes
+            rec2, _ = run_tracking(self.source, cfg, pos_svs, st2,
+                                   mk(cfg, pdi_ms=10), (n_ms - sw_min) * 10,
+                                   chunk_ms=chunk_ms)
+            merged = {f: np.stack(
+                [np.concatenate([getattr(rec1, f)[:sw[ch], ch],
+                                 getattr(rec2, f)[:n_ms - sw[ch], ch]])
+                 for ch in range(len(pos_svs))], axis=1)
+                for f in _REC_FIELDS}
+            rec = TrackRecords(**merged, i_early=params1.i_early,
+                               i_prompt=params1.i_prompt,
+                               i_late=params1.i_late)
+            pdi_rows = np.where(np.arange(n_ms)[:, None] < sw[None, :], 1, 10)
         nav: NavSolutions = run_ct_positioning(rec, cfg, pos_svs, eph, sbf,
-                                               init_pos_ecef)
+                                               init_pos_ecef,
+                                               pdi_ms_per_block=pdi_rows)
         self._save_records(stem_t, rec)
         self._save_pickle(stem_n, nav)
         return rec, nav

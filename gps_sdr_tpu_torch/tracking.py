@@ -2,9 +2,13 @@
 
 Channels are a batch dimension; time advances chunk by chunk.  Each chunk
 of raw IQ crosses to the device once (native int8/int16, cast on the
-device) and one `ops.track_chunk.track_chunk` call runs every coherent
-block of it for all channels: the CUDA kernel on the card, the plain
-PyTorch version on the CPU.
+device).  Coherent blocks of up to 2 ms go through one
+`ops.track_chunk.track_chunk` call per chunk, which runs every block of it
+for all channels: the CUDA kernel on the card, the plain PyTorch version on
+the CPU.  Longer blocks (the 10 ms phases of the reference's schedules) go
+block by block through `track_scan`: each channel's window is cut out of
+the chunk on the device, `ops.corr_bank.correlator_bank_windows`
+correlates it, and the loops close in float64 tensors on the device.
 
 The loop state is kept exact as in the JAX scan (gps_sdr_tpu/tracking.py):
 the carrier phase is an int32 Q32 accumulator that wraps exactly mod one
@@ -28,6 +32,8 @@ import torch
 from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.io.ifdata import (ChunkPrefetcher, DeviceStager,
                                          IFSampleSource)
+from gps_sdr_tpu_torch.ops import corr_bank
+from gps_sdr_tpu_torch.ops import track_chunk as tc
 from gps_sdr_tpu_torch.ops.cacode import ca_code_table
 from gps_sdr_tpu_torch.ops.loops import loop_coefficients
 from gps_sdr_tpu_torch.ops.track_chunk import (ChunkSpec, raise_on_fault,
@@ -232,11 +238,60 @@ def chip_tables(prns, device=None) -> torch.Tensor:
                            dtype=torch.float32, device=device)
 
 
+def track_scan(raw: torch.Tensor, chunk_start: int, state: TrackState,
+               chips: torch.Tensor, spec: ChunkSpec, n_steps: int):
+    """Track all channels for `n_steps` blocks of one chunk, block by block.
+
+    Arguments and result as `ops.track_chunk.track_chunk`.  Per block each
+    channel's window of `spec.blk` samples is cut at ptr − chunk_start
+    (`corr_bank.WindowCutter`), `correlator_bank_windows` correlates the
+    windows (the CUDA kernel for a chunk on the card, its plain version on
+    the CPU) and `block_step` closes the loops: the arithmetic of
+    `track_chunk_reference`, so on the CPU the two agree bit for bit.
+
+    Nothing inside the loop synchronises with the host: block lengths and
+    pointers stay on the device.  `records["fault"]` is 1 + the last
+    channel whose window left the chunk, whose block length left
+    [1, blk] or whose NCO words were not finite; `raise_on_fault` reads it
+    with the records.
+    """
+    tc.check_inputs(raw, state, chips, spec, n_steps, chunk_start)
+    dev = raw.device
+    n, blk = state.ptr.shape[0], spec.blk
+    tap_fp = torch.as_tensor(spec.tap_fp(), device=dev)
+    grid = tc.BlockGrid.make(blk, dev) if dev.type == "cpu" else None
+    k = tc.LoopConsts.make(spec, dev)
+    fault = corr_bank.new_fault(dev)
+    cut = corr_bank.WindowCutter(raw, blk)
+
+    def bank(b: tc.BlockNCO) -> torch.Tensor:
+        corr, _ = corr_bank.correlator_bank_windows(
+            cut(b.ptr - chunk_start), b.rem_chip, b.code_freq, b.phase,
+            b.carr_fp, b.num, chips, tap_fp, spec.fs, spec.remove_dc, fault,
+            grid)
+        return corr
+
+    st = state._replace(phase_fp=state.phase_fp.to(torch.int64))
+    rows = []
+    for _ in range(n_steps):
+        st, row, _ = tc.block_step(st, spec, k, bank)
+        rows.append(row)
+    rec = tc.stack_rows(rows, fault, n, len(spec.taps))
+    if rows:
+        # every window's offset, from the records: the cutter clamps
+        off = rec["absolute_sample"] - rec["num_sample"] - chunk_start
+        corr_bank.raise_flag(
+            fault, ((off < 0) | (off + blk > raw.shape[0])).any(dim=0))
+    return rec, st._replace(phase_fp=st.phase_fp.to(torch.int32))
+
+
 def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
                  state: TrackState, params: TrackParams, n_ms: int,
                  chunk_ms: int = 1000) -> Tuple[TrackRecords, TrackState]:
-    """Track `n_ms` of signal ms from `state` (on its device), one
-    `track_chunk` call per chunk of `chunk_ms`.
+    """Track `n_ms` of signal ms from `state` (on its device), chunk by
+    chunk of `chunk_ms`: one `track_chunk` call per chunk for coherent
+    blocks of up to 2 ms, `track_scan` for longer ones
+    (gps_sdr_tpu/tracking.py:550-554 routes them the same way).
 
     The next chunk's host read overlaps the device's work on the current
     one (ChunkPrefetcher); the prefetch is sized from the real fetch
@@ -256,6 +311,7 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
             f"file has {source.n_samples}")
     n_blocks_total = n_ms // params.pdi_ms
     blocks_per_chunk = max(1, chunk_ms // params.pdi_ms)
+    tracker = track_scan if params.pdi_ms > 2 else track_chunk
     prefetcher = ChunkPrefetcher(source.read_iq_values)
     stager = DeviceStager(device)
     parts = []
@@ -267,7 +323,7 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
             ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
             length = (ptr_max - ptr_min) + spec.chunk_samples(nb)
             raw = stager.stage(prefetcher.fetch(ptr_min, length))
-            rec, state = track_chunk(raw, ptr_min, state, chips, spec, nb)
+            rec, state = tracker(raw, ptr_min, state, chips, spec, nb)
             nb_next = min(blocks_per_chunk, n_blocks_total - done - nb)
             if nb_next > 0:
                 # pointers advance ~nb·pdi·S with tens of samples of

@@ -7,12 +7,13 @@ temporary directory (never the shared .cache/).
 
 Both Receivers run acquisition → track_for_eph(31800) → decode(200) →
 usable_svs → ct_position(4000) → vt_position(600, ct 4000, from a start
-3.7 km off) → vt_position(200, the 29-tap bank), each with its own artifact
-directory; the JAX one single-device (mesh=None), its VT on the exact-NCO
-replica (what "auto" resolves to off the TPU).  The port tracks on the CPU
-through the plain version of the tracking kernel, the same arithmetic as the
-JAX "nco" scan up to float32 summation order (correlators ~3e-6 relative
-apart).
+3.7 km off) → vt_position(200, the 29-tap bank) → ct_position(2400 rows
+with the per-channel pdi 1 → 10 ms switch at row 2000 + countinx), each
+with its own artifact directory; the JAX one single-device (mesh=None), its
+VT on the exact-NCO replica (what "auto" resolves to off the TPU).  The
+port tracks on the CPU through the plain version of the tracking kernel (the
+10 ms blocks through `track_scan`), the same arithmetic as the JAX "nco"
+scan up to float32 summation order (correlators ~3e-6 relative apart).
 
 That is not enough for identical trajectories over 32 s.  The loops round
 float64 NCO words to integers every block (carr_fp to one Q32 LSB, the
@@ -47,6 +48,9 @@ torch.set_num_threads(2)
 FS, F_IF = 2.5e6, 0.6e6
 EPH_MS, DECODE_OFFSET_MS, CT_MS = 31800, 200, 4000
 VT_MS, VT_MC_MS, VT_TAIL = 600, 200, 300
+# the switch of tests/test_e2e_ct.py: some 45 WLS epochs (from ~1.1 s in)
+# before the first channel switches, 200 after
+SW_ROWS, SW_MS = 2400, 2000
 
 
 @pytest.fixture(scope="module")
@@ -82,9 +86,11 @@ def runs(tmp_path_factory):
                                         init_pos_ecef=init)
         mc_trk, mc_sol = rx.vt_position(n_ms=VT_MC_MS, ct_n_ms=CT_MS,
                                         init_pos_ecef=init, multicorr=True)
+        sw_rec, sw_nav = rx.ct_position(n_ms=SW_ROWS, pdi_switch_ms=SW_MS)
         out[tag] = dict(acq=acq, rec=rec, eph=eph, sbf=sbf, usable=usable,
                         ct_rec=ct_rec, nav=nav, dir=rx.dir, vt_trk=vt_trk,
-                        vt_sol=vt_sol, mc_trk=mc_trk, mc_sol=mc_sol)
+                        vt_sol=vt_sol, mc_trk=mc_trk, mc_sol=mc_sol,
+                        sw_rec=sw_rec, sw_nav=sw_nav, cnt=rx.countinx())
     return out
 
 
@@ -143,6 +149,41 @@ def test_ct_records_and_wls_fixes(runs):
     err_j = np.linalg.norm(jp - runs["usr"], axis=1)
     assert np.median(err_t) < 35.0 and np.max(err_t) < 80.0
     assert abs(np.median(err_t) - np.median(err_j)) < 1.0
+
+
+def test_ct_pdi_switch(runs):
+    """`ct_position(pdi_switch_ms=2000)`: each channel runs 1 ms blocks for
+    2000 + countinx rows and 10 ms blocks after (the port's through
+    `track_scan`).  Same `countinx`, so the same rows per regime (read back
+    from the block lengths); artifacts under the JAX package's `_sw2000`
+    stems; the block chain as in the other stages; the fixes within 1 m of
+    the JAX package's across the switch."""
+    j, t = runs["jax"], runs["torch"]
+    np.testing.assert_array_equal(t["cnt"], j["cnt"])
+    S = runs["cfg"].signal.samples_per_ms
+    jr, tr = j["sw_rec"], t["sw_rec"]
+    assert tr.corr.shape == jr.corr.shape == (SW_ROWS, len(sc.SCN_PRNS), 3, 2)
+    pdi_t = np.where(np.abs(tr.num_sample - S) < 50, 1, 10)
+    pdi_j = np.where(np.abs(jr.num_sample - S) < 50, 1, 10)
+    np.testing.assert_array_equal(pdi_t, pdi_j)
+    rows = np.arange(SW_ROWS)[:, None]
+    np.testing.assert_array_equal(
+        pdi_t, np.where(rows < SW_MS + t["cnt"][None, :], 1, 10))
+    assert np.all(np.abs(tr.num_sample - pdi_t * S) < 50)
+    for d in (j["dir"], t["dir"]):
+        stems = [f for f in os.listdir(d) if f"_{SW_ROWS}_sw{SW_MS}_" in f]
+        assert sorted(s.split("_")[0] for s in stems) == ["navct", "tckct"]
+    _assert_chains_agree(jr, tr)
+    tp, jp = t["sw_nav"].usr_pos, j["sw_nav"].usr_pos
+    assert tp.shape == jp.shape and len(tp) > 100
+    dist = np.linalg.norm(tp - jp, axis=1)
+    print(f"pdi switch: {len(tp)} epochs, fixes median {np.median(dist):.3f}"
+          f" m, max {np.max(dist):.3f} m apart")
+    assert np.max(dist) < 1.0, dist
+    err_t = np.linalg.norm(tp - runs["usr"], axis=1)
+    assert np.median(err_t[5:40]) < 40.0 and np.median(err_t[60:]) < 40.0
+    np.testing.assert_allclose(np.diff(t["sw_nav"].transmit_time, axis=0),
+                               0.02, rtol=0, atol=1e-6)
 
 
 def test_ct_positioning_from_jax_records(runs):
