@@ -12,7 +12,10 @@ Phases, each printing one line of evidence:
    path's shape (58 MHz, 8 channels), on the same inputs:
    - track_chunk: 1000 E/P/L blocks and 300 blocks of the 25-tap bank, plus
      a 77 ms chunk-chaining run, with the bounds of
-     tests/test_pallas_fused.py; per-chunk times of both;
+     tests/test_pallas_fused.py; per-chunk times of both; every field bit
+     for bit on clusters of 1 to 16 CTAs per channel (with their times),
+     with DC removal, with int16 samples, and a chunk in which one channel
+     runs into the fault (flag = 1 + channel, the others unharmed);
    - correlator_bank: one block at 3 taps and at the 29-tap VT grid, with
      and without DC removal, from the NCO state the tracker reached and
      from states spread over code phase, carrier frequency and block
@@ -25,10 +28,10 @@ Phases, each printing one line of evidence:
      split, from the tracked state and from spread states; equal bit for
      bit to correlator_bank on the same samples; the fault flag for a
      block length outside the window; times of the kernel, the wrapper,
-     the window cut, the plain version, and of other splits at 10 ms.
+     the window cut, the plain version, and of other splits.
    - the same 100 blocks of 10 ms through tracking.track_scan (windows
-     bank per block) and through track_chunk (one launch): integer chain
-     identical; times of both; track_scan's operations and launches per
+     bank per block) and through track_chunk (one launch): every field
+     equal bit for bit; times of both; track_scan's operations and launches per
      block (torch.profiler).
 3. The main path: a 41 s, 58 MHz int8 capture of 8 SVs (transmit-time
    geometry + atmosphere, the repo's e2e workload) synthesized on the card
@@ -294,11 +297,9 @@ def phase_device_and_build() -> str:
     return smi
 
 
-def phase_kernel_vs_plain(dev: torch.device) -> tuple:
-    """The tracking kernel and its plain version on the same chunk at the
-    e2e shape; simple-dynamics signals of the 8 e2e PRNs at their powers.
-    Returns (measurements, what the bank phase reuses: the capture, the
-    code tables and the state after the 1000 E/P/L blocks)."""
+def kernel_workload(dev: torch.device) -> dict:
+    """What phase 2 tracks: simple-dynamics signals of the 8 e2e PRNs at
+    their powers, 1100 ms at the e2e rates, and the channels' start."""
     cfg = cfg_e2e()
     S = cfg.signal.samples_per_ms
     rng = np.random.default_rng(3)
@@ -318,16 +319,32 @@ def phase_kernel_vs_plain(dev: torch.device) -> tuple:
         next_epoch = sv.code_delay_samples % (1023 / f_code * FS)
         code_delays.append(int(round((S - next_epoch) % S)))
         fine.append(F_IF + sv.doppler_hz + 3.0)
-    chips = chip_tables(PRNS, dev)
-    stager = DeviceStager(dev)
+    return dict(cfg=cfg, src=src, chips=chip_tables(PRNS, dev),
+                stager=DeviceStager(dev), code_delays=code_delays, fine=fine)
+
+
+def chunk_of(work: dict, kind: str, n_steps: int, dev: torch.device) -> tuple:
+    """(raw, chunk_start, state, spec) of `n_steps` blocks of the tracker
+    `kind` from the workload's start."""
+    cfg = work["cfg"]
+    spec = getattr(TrackParams, kind)(cfg).chunk_spec(cfg)
+    state = init_track_state(cfg, work["code_delays"], work["fine"], dev)
+    start = int(state.ptr.min())
+    length = int(state.ptr.max()) - start + spec.chunk_samples(n_steps)
+    raw = work["stager"].stage(work["src"].read_iq_values(start, length))
+    return raw, start, state, spec
+
+
+def phase_kernel_vs_plain(dev: torch.device) -> tuple:
+    """The tracking kernel and its plain version on the same chunk at the
+    e2e shape.  Returns (measurements, what the bank phases reuse: the
+    capture, the code tables and the state after the 1000 E/P/L blocks)."""
+    work = kernel_workload(dev)
+    cfg, src, chips = work["cfg"], work["src"], work["chips"]
+    code_delays, fine = work["code_delays"], work["fine"]
     res = {}
     for kind, n_steps in (("epl", 1000), ("pos_multicorr", 300)):
-        params = getattr(TrackParams, kind)(cfg)
-        spec = params.chunk_spec(cfg)
-        state = init_track_state(cfg, code_delays, fine, dev)
-        start = int(state.ptr.min())
-        length = int(state.ptr.max()) - start + spec.chunk_samples(n_steps)
-        raw = stager.stage(src.read_iq_values(start, length))
+        raw, start, state, spec = chunk_of(work, kind, n_steps, dev)
         out, end = tc.track_chunk(raw, start, state, chips, spec, n_steps)
         ref, _ = tc.track_chunk_reference(raw, start, state, chips, spec,
                                           n_steps)
@@ -355,6 +372,15 @@ def phase_kernel_vs_plain(dev: torch.device) -> tuple:
             # the state the both-trackers segment starts from
             _, early = tc.track_chunk(raw, start, state, chips, spec,
                                       SCAN_LEAD_MS)
+        if kind == "epl":
+            res.update(_kernel_variants(raw, start, state, chips, spec, out))
+        else:
+            one, _ = tc._track_chunk_cuda(raw, start, state, chips, spec,
+                                          n_steps, cluster=1)
+            m["one_cta_differs"] = differing_fields(one, out)
+            if m["one_cta_differs"]:
+                raise AssertionError(f"{kind}: one CTA per channel differs "
+                                     f"from the cluster in {m}")
     # chunk chaining: 77 ms chunks against one 1000 ms chunk, both kernel
     params = TrackParams.epl(cfg)
     one, _ = run_tracking(src, cfg, PRNS,
@@ -374,8 +400,93 @@ def phase_kernel_vs_plain(dev: torch.device) -> tuple:
                                  "rem_chip", "rem_phase"))
     res["chain77"] = m
     evidence("kernel_vs_plain", bounds=BOUNDS, **res)
-    return res, dict(cfg=cfg, src=src, chips=chips, stager=stager,
+    return res, dict(cfg=cfg, src=src, chips=chips, stager=work["stager"],
                      tracked=tracked, early=early)
+
+
+RECORD_FIELDS = ("corr", "code_err", "carr_err", "code_freq", "carr_freq",
+                 "num_sample", "rem_chip", "rem_phase", "absolute_sample")
+VARIANT_BLOCKS = 300
+
+
+def differing_fields(a, b, rows=slice(None), chans=slice(None)) -> list:
+    """The record fields of two runs that are not equal bit for bit."""
+    return [f for f in RECORD_FIELDS
+            if not torch.equal(a[f][rows][:, chans], b[f][rows][:, chans])]
+
+
+def _kernel_variants(raw, start, state, chips, spec, out) -> dict:
+    """track_chunk beyond the main path's shape, every field held bit for
+    bit: cluster sizes against each other (1000 blocks, with their times),
+    and over VARIANT_BLOCKS blocks DC removal on and int16 samples against
+    the plain version and against one CTA per channel, and a chunk in which
+    one channel's loop diverges into the fault."""
+    dev = raw.device
+    n = state.ptr.shape[0]
+    n_steps = out["num_sample"].shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chosen = tc.cluster_size(n, sms)
+    res = dict(cluster=chosen, cluster_ms={}, active_clusters={})
+    c = 1
+    while c <= 2 * tc.MAX_CLUSTER:   # the last is the non-portable size
+        alt, _ = tc._track_chunk_cuda(raw, start, state, chips, spec, n_steps,
+                                      cluster=c)
+        diff = differing_fields(alt, out)
+        if diff:
+            raise AssertionError(f"track_chunk on clusters of {c} and of "
+                                 f"{chosen} CTAs differs in {diff}")
+        res["cluster_ms"][str(c)] = timed_ms(
+            lambda: tc._track_chunk_cuda(raw, start, state, chips, spec,
+                                         n_steps, cluster=c), 3)
+        res["active_clusters"][str(c)] = tc.active_clusters(
+            n, c, len(spec.taps), False, dev)
+        c *= 2
+    res["clusters_bitwise"] = True
+
+    variants = dict(
+        dc=(raw, spec._replace(remove_dc=True)),
+        int16=(raw.to(torch.int16) * 100, spec),
+        int16_dc=(raw.to(torch.int16) * 100, spec._replace(remove_dc=True)))
+    for name, (x, sp) in variants.items():
+        got, _ = tc.track_chunk(x, start, state, chips, sp, VARIANT_BLOCKS)
+        one, _ = tc._track_chunk_cuda(x, start, state, chips, sp,
+                                      VARIANT_BLOCKS, cluster=1)
+        ref, _ = tc.track_chunk_reference(x, start, state, chips, sp,
+                                          VARIANT_BLOCKS)
+        for r in (got, one, ref):
+            tc.raise_on_fault(r)
+        m = dict(blocks=VARIANT_BLOCKS,
+                 differs_from_plain=differing_fields(got, ref),
+                 one_cta_differs=differing_fields(one, got),
+                 kernel_ms=timed_ms(lambda: tc.track_chunk(
+                     x, start, state, chips, sp, VARIANT_BLOCKS), 3))
+        if m["differs_from_plain"] or m["one_cta_differs"]:
+            raise AssertionError(f"track_chunk variant {name}: {m}")
+        res[name] = m
+
+    # one channel's DLL thrown far off: its blocks grow to millions of
+    # samples and leave the chunk after a few; the other channels go on
+    ch = n - 3
+    bad = state._replace(dll_nco=state.dll_nco.clone())
+    bad.dll_nco[ch] = -spec.dll_freq_sign * 1.0e6   # code_freq ~ 23 kHz
+    clean, _ = tc.track_chunk(raw, start, state, chips, spec, VARIANT_BLOCKS)
+    got, _ = tc.track_chunk(raw, start, bad, chips, spec, VARIANT_BLOCKS)
+    ref, _ = tc.track_chunk_reference(raw, start, bad, chips, spec,
+                                      VARIANT_BLOCKS)
+    torch.cuda.synchronize()
+    others = [c for c in range(n) if c != ch]
+    m = dict(channel=ch, flag=int(got["fault"][0]),
+             plain_flag=int(ref["fault"][0]),
+             others_differ=differing_fields(got, clean, chans=others))
+    try:
+        tc.raise_on_fault(got)
+    except RuntimeError:
+        m["raised"] = True
+    if not (m.get("raised") and m["flag"] == ch + 1 == m["plain_flag"]) \
+            or m["others_differ"]:
+        raise AssertionError(f"track_chunk fault case: {m}")
+    res["fault"] = m
+    return res
 
 
 def _bank_case(raw, start, nco, chips, taps, blk, remove_dc, scale):
@@ -472,7 +583,7 @@ def phase_bank_vs_plain(dev: torch.device, shared: dict) -> dict:
                 res["cases"][f"{name}_dc{int(remove_dc)}_{tag}"] = m
     res["max_abs_err"] = max(m["max_abs_err"] for m in res["cases"].values())
     res["bitwise"] = all(m["bitwise"] for m in res["cases"].values())
-    res["n_split"] = cb.default_split(n)
+    res["n_split"] = cb.default_split(n, blk)
     res["empty_launch_ms"] = timed_graph_ms(lambda: cb.empty_launch(dev), 10)
     res["empty_launch_eager_ms"] = timed_ms(lambda: cb.empty_launch(dev), 200)
 
@@ -572,11 +683,12 @@ def phase_windows_vs_plain(dev: torch.device, shared: dict) -> dict:
     grids = (("epl3", TrackParams.epl(cfg).taps),
              ("ct25", TrackParams.pos_multicorr(cfg).taps))
 
-    res = dict(bound_rel=BANK_BOUND_REL, cases={}, n_split=cb.default_split(n))
-    timed = {}
+    res = dict(bound_rel=BANK_BOUND_REL, cases={}, n_split={})
+    timed, split_args = {}, {}
     for pdi in (1, 10):
         blk = -(-(pdi * S + 256) // 128) * 128
         n_chips = 1023.0 * pdi
+        res["n_split"][f"{pdi}ms"] = cb.default_split(n, blk)
         locked = dict(
             ptr=st.ptr, rem_chip=st.rem_chip, code_freq=st.code_freq,
             phase_fp=st.phase_fp.to(i64), carr_fp=carr_fp_of(st.carr_freq),
@@ -624,12 +736,14 @@ def phase_windows_vs_plain(dev: torch.device, shared: dict) -> dict:
                             lambda: cutter(off), 50)
                         m["num"] = nco["num"]
                         timed[(name, pdi, remove_dc)] = m
+                        if not remove_dc:
+                            split_args[(name, pdi)] = args
                     res["cases"][f"{name}_{pdi}ms_dc{int(remove_dc)}_{tag}"] \
                         = m
     res["max_abs_err"] = max(m["max_abs_err"] for m in res["cases"].values())
     res["bitwise"] = all(m["bitwise"] for m in res["cases"].values())
 
-    # the new path's shape: 10 ms blocks, 3 taps, int8 (no DC removal).
+    # the path's shape: 10 ms blocks, 3 taps, int8 (no DC removal).
     # Bound: each window's `num` samples read once, the code tables, the
     # NCO words, the result written once
     nums = {key: m.pop("num") for key, m in timed.items()}
@@ -640,14 +754,20 @@ def phase_windows_vs_plain(dev: torch.device, shared: dict) -> dict:
         + 3 * 8 + n * 3 * 2 * 4,
         n_samples * (OPS_PER_SAMPLE + OPS_PER_TAP * 3)))
     res["main_shape"] = head
-    # more CTAs per channel than the default at 10 ms (a part is then
-    # fewer than 256 rows: one segment per CTA)
-    args = _windows_case(raw, start, locked, chips, grids[0][1], blk, False,
-                         scale)["args"]
+    # other numbers of CTAs per channel than the default
     flag = cb.new_fault(dev)
-    res["split_10ms_epl3_ms"] = {
-        str(k): timed_graph_ms(lambda: cb.correlator_bank_windows(
-            *args, fault=flag, n_split=k), 10) for k in (16, 32, 64, 128)}
+    for name, pdi, splits, dcs in (
+            ("epl3", 1, (4, 8, 16, 32), (False, True)),
+            ("epl3", 10, (8, 16, 24, 32, 64, 128), (False, True)),
+            ("ct25", 10, (8, 16, 32, 64), (False,))):
+        args = split_args[(name, pdi)]
+        splits = sorted({*splits, cb.default_split(n, args[0].shape[1])})
+        for dc in dcs:
+            res[f"split_{pdi}ms_{name}{'_dc' if dc else ''}_ms"] = {
+                str(k): timed_graph_ms(lambda: cb.correlator_bank_windows(
+                    *args[:-1], dc, fault=flag, n_split=k), 10)
+                for k in splits}
+    args = split_args[("epl3", 10)]
 
     # nothing is clamped: a block length outside [1, blk] raises the flag
     for bad_num, ch in ((blk + 1, n - 1), (0, 2)):
@@ -672,8 +792,8 @@ def phase_windows_vs_plain(dev: torch.device, shared: dict) -> dict:
 def phase_both_trackers(dev: torch.device, shared: dict) -> dict:
     """The same SCAN_BLOCKS blocks of 10 ms (negated outputs, the eph
     schedule's phase (c)) from one state through `tracking.track_scan` and
-    through the whole-chunk kernel `track_chunk`.  Gate: the integer chain
-    identical.  Also what one block of track_scan costs the host
+    through the whole-chunk kernel `track_chunk`.  Gate: every record
+    field equal bit for bit.  Also what one block of track_scan costs the host
     (torch.profiler: operations, kernel launches, device busy time)."""
     from torch.profiler import ProfilerActivity, profile
     cfg, src, chips = shared["cfg"], shared["src"], shared["chips"]
@@ -706,9 +826,9 @@ def phase_both_trackers(dev: torch.device, shared: dict) -> dict:
         carr_freq_hz=float((a["carr_freq"] - b["carr_freq"]).abs().max()),
         rem_chip=float((a["rem_chip"] - b["rem_chip"]).abs().max()),
         phase_rad=float(dphi.abs().max()))
-    if not same:
-        raise AssertionError(f"track_scan and track_chunk disagree on the "
-                             f"integer block chain: {res}")
+    if not (same and res["bitwise"]):
+        raise AssertionError(f"track_scan and track_chunk disagree (every "
+                             f"field is to be equal bit for bit): {res}")
 
     def wall_ms(fn, repeat):
         torch.cuda.synchronize()

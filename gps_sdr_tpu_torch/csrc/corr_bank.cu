@@ -1,47 +1,64 @@
-// One-block correlator bank for Hopper (sm_90a): the vector-tracking hot path.
+// One-block correlator banks for Hopper (sm_90a): the vector-tracking hot
+// path and the per-block tracker's bank over windows.
 //
-// Replaces the TPU kernel gps_sdr_tpu/ops/pallas_track.py::correlator_bank_hbm
-// (_bank_kernel): one coherent block for every channel with the NCO state
-// supplied from outside (the VDFLL drives the code NCO from the navigation
-// solution once per ms, trackingVT_POS_updated.m:218-232).  Each channel's
-// window is read at ptr_off from the int8/int16 chunk that stays in device
-// memory, mixed with the Q32 carrier, masked to `num` samples, optionally
-// freed of its mean, and correlated per tap against the code at that tap's
-// offset: I and Q sums per tap, (N, ntaps, 2) float32.
+// corr_bank_kernel replaces the TPU kernel
+// gps_sdr_tpu/ops/pallas_track.py::correlator_bank_hbm (_bank_kernel): one
+// coherent block for every channel with the NCO state supplied from outside
+// (the VDFLL drives the code NCO from the navigation solution once per ms,
+// trackingVT_POS_updated.m:218-232).  Each channel's window is read at
+// ptr_off from the int8/int16 chunk that stays in device memory, mixed with
+// the Q32 carrier, masked to `num` samples, optionally freed of its mean, and
+// correlated per tap against the code at that tap's offset: I and Q sums per
+// tap, (N, ntaps, 2) float32.
 //
-// What bounds it on this card: one launch moves ~116 KB per channel and does
-// a few MFLOP, well under a microsecond of either, so the bound is the launch
-// itself; what the kernel adds on top is the latency of one block's samples
-// walked by too few threads.  Because the NCO state is an input here, a
-// block's samples have no serial dependence: the grid is (channel, part), a
-// channel's 128-sample rows split over `n_split` CTAs, so 8 channels fill the
-// card's SMs instead of 8 of them.  Each CTA reduces its float64 tap sums
-// (warp shuffles, then the warps in order) into its own slot of `partial`,
-// and a second small kernel adds a channel's slots in part order and rounds
-// to float32 once: no floating-point atomics, so results repeat run to run.
-// With n_split == 1 the first kernel writes the result itself.
+// corr_bank_windows_kernel replaces the TPU kernel
+// gps_sdr_tpu/ops/pallas_correlator.py::correlator_bank (_corr_kernel): the
+// same bank over windows that the caller has already cut out, one (blk, 2)
+// window per channel, which is what the per-block tracker (tracking.py
+// track_scan) runs for every coherent block longer than 2 ms.  Both are thin
+// callers of bank_block below, so their sums agree bit for bit.
+//
+// What bounds them on this card.  At 1 ms a launch moves ~116 KB per channel
+// and does a few MFLOP, well under a microsecond of either: the floor is the
+// launch (and the second kernel), and what the kernel adds is the latency of
+// its set-up and of one tile's load.  At 10 ms, 8 channels move 9.3 MB,
+// 2.8 us at the card's memory rate: bytes are the bound, and what the kernel
+// adds is the dispatch of its per-sample instructions.  Because the NCO state is
+// an input, a block's samples have no serial dependence.
+//
+// Design: the grid is (channel, part); a channel's 128-sample rows are split
+// over `n_split` CTAs.  Every CTA makes the channel's tables (the code as
+// float64, the r-phasors), so parts are not free: what measured best at 1 and
+// at 10 ms is one wave with one CTA an SM (16 parts for 8 channels), fewer for
+// a block so short that a part would fall under two dozen rows (the
+// wrapper's default_split).  Each CTA walks its part as a ring of two 16 KB
+// tiles in shared memory, filled by 16-byte asynchronous copies one tile
+// ahead, and correlates them with the shared sample loop of nco_common.cuh
+// (one float64 conversion per sample, the chip index kept along a thread's
+// run of samples).  It reduces its float64 tap sums (warp shuffles, then the
+// warps in order) into its own slot of `partial`, and a second small kernel
+// adds a channel's slots in part order and rounds to float32 once: no
+// floating-point atomics, so results repeat run to run.  With n_split == 1
+// the first kernel writes the result itself.  A cluster per channel with a
+// reduction through distributed shared memory does not replace the second
+// kernel: 16 parts are more than the portable cluster of 8, and of clusters
+// of 16 the card holds 7 at once (cudaOccupancyMaxActiveClusters), fewer than
+// the 8 channels; partial sums would cross clusters through device memory
+// all the same, for the ~1 us that the second launch costs in a graph.
+//
+// DC removal reads the window once more, not once per part: a small kernel
+// on the same grid writes each part's integer sums (exact, order-free) into
+// the part's slot, and every correlating CTA adds the channel's slots for
+// the mean.  With n_split == 1 the CTA sums its tiles itself.
 //
 // The arithmetic is that of the exact-NCO replica (tracking.py:239-318 with
-// `num` given), shared with track_chunk.cu through nco_common.cuh: the Q32
-// phasor-product carrier, chip index ((base + tap + k*step - 1) >> 32) mod
-// 1023 from a 1023-entry shared table, float64 sums of exact +-1*sample
-// products.  Built with -fmad=false it gives the plain PyTorch version's
-// float32 results (ops/corr_bank.py) except where a float64 sum lies within
-// ~1e-15 of a float32 rounding boundary.
+// `num` given), shared with track_chunk.cu through nco_common.cuh.  Built
+// with -fmad=false it gives the plain PyTorch version's float32 results
+// (ops/corr_bank.py).
 //
 // Nothing is clamped: a window that leaves the chunk, a block length outside
 // [1, blk], or an NCO word that is not finite raises *fault to 1 + channel
 // (atomicMax) and that channel's result is zero; the host raises.
-//
-// A second entry point, corr_bank_windows_kernel, replaces the TPU kernel
-// gps_sdr_tpu/ops/pallas_correlator.py::correlator_bank (_corr_kernel): the
-// same bank over windows that the caller has already cut out, one (blk, 2)
-// window per channel, which is what the per-block tracker (tracking.py
-// track_scan) runs for every coherent block longer than 2 ms.  It shares
-// bank_block below, so its sums are those of the fetching entry bit for bit.
-// A 10 ms block at 58 MHz is 1.16 MB per channel (int8): 8 channels move
-// 9.3 MB, 2.8 us at the card's memory rate, so bytes bound it, not the
-// launch; the (channel, part) grid is what spreads 8 channels over the SMs.
 
 #include "nco_common.cuh"
 
@@ -49,111 +66,132 @@ namespace {
 
 using namespace nco;
 
+constexpr int kTileBytes = 16384;
+constexpr int kSmemBytes = 2 * kTileBytes;
+constexpr int kDcThreads = 256;
+
 struct Params {
   long long n_raw;  // samples in the chunk
   int n_ch, ntaps, n_split, blk, remove_dc;
   double fs;
 };
 
-// One channel's part of one block: `x` points at the block's first IQ pair,
-// the block is known to be valid.  NT > 0: tap count fixed at compile time;
-// NT == 0: runtime p.ntaps.  Every thread of the CTA calls it.
-template <int NT, int THREADS, typename PairT>
+// One channel's block as the kernels are given it; ok == false: refused.
+struct Block {
+  long long off;
+  int num;
+  double rem, step_c;
+  bool ok;
+};
+
+// ptr_off == nullptr: the windows entry, channel ch's window is
+// raw[ch * blk : (ch + 1) * blk], so only the block length can be out of
+// range.
+__device__ __forceinline__ Block block_of(const Params& p, int ch,
+                                          const long long* ptr_off,
+                                          const double* rem_chip,
+                                          const double* code_freq,
+                                          const long long* num_in) {
+  Block b;
+  const long long num = num_in[ch];
+  b.off = ptr_off ? ptr_off[ch] : (long long)ch * p.blk;
+  b.rem = rem_chip[ch];
+  b.step_c = code_freq[ch] / p.fs;  // chips per sample
+  b.ok = num >= 1 && num <= (long long)p.blk && b.off >= 0 &&
+         b.off + num <= p.n_raw && isfinite(b.rem) && isfinite(b.step_c);
+  b.num = b.ok ? (int)num : 0;
+  return b;
+}
+
+// This part's samples of a block of `num`: whole 128-sample rows.
+template <typename PairT>
+__device__ __forceinline__ void part_share(
+    Share<kTileBytes, PairT>* sh, const Params& p, const PairT* raw,
+    long long off, int num) {
+  const int rows = (num + 127) >> 7;
+  const int rows_per = (rows + p.n_split - 1) / p.n_split;
+  const long long lo = (long long)blockIdx.y * rows_per * 128;
+  sh->set(raw, off, (int)min((long long)num, lo),
+          (int)min((long long)num, lo + (long long)rows_per * 128));
+}
+
+// The partial sums of (channel, part): ntaps (I, Q) pairs, then the part's
+// integer sums for DC removal.
+__device__ __forceinline__ double* slot_of(const Params& p, double* partial,
+                                           int ch, int part) {
+  return partial + ((long long)ch * p.n_split + part) * 2 * (p.ntaps + 1);
+}
+
+// One channel's part of one block, the block known to be valid.  NT > 0: tap
+// count fixed at compile time; NT == 0: runtime p.ntaps.  Every thread of
+// the CTA calls it.
+template <int NT, typename PairT>
 __device__ __forceinline__ void bank_block(
-    const Params& p, const PairT* __restrict__ x, int num, double rem,
-    double step_c, unsigned phase0, unsigned carr_fp,
-    const float* __restrict__ chips, const long long* __restrict__ tap_fp,
-    float* __restrict__ corr, double* __restrict__ partial) {
-  constexpr int T = NT > 0 ? NT : kMaxTaps;
-  constexpr int kWarps = THREADS / 32;
-  static_assert(THREADS % 128 == 0, "a thread keeps one r-phasor");
+    const Params& p, const PairT* __restrict__ raw, const Block& b,
+    unsigned phase0, unsigned carr_fp, const float* __restrict__ chips,
+    const long long* __restrict__ tap_fp, float* __restrict__ corr,
+    double* __restrict__ partial) {
+  typedef Share<kTileBytes, PairT> ShareT;
+  typedef CorrWork<NT, kTileBytes, PairT> WorkT;
+  constexpr int kWarps = threads_for(NT) / 32;
   const int ntaps = NT > 0 ? NT : p.ntaps;
   const int ch = blockIdx.x, part = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  __shared__ float s_chips[kCodeLen];
-  __shared__ long long s_tap[kMaxTaps];
-  __shared__ float s_vc[128], s_vs[128];          // e^{i theta_r}
-  __shared__ float s_uc[THREADS], s_us[THREADS];  // e^{i theta_q}, a segment
-  __shared__ double s_part[kWarps][2 * kMaxTaps];
+  extern __shared__ __align__(16) unsigned char s_tiles[];
+  __shared__ double s_part[kWarps][2 * WorkT::T];
+  PairT* t0 = reinterpret_cast<PairT*>(s_tiles);
+  PairT* t1 = reinterpret_cast<PairT*>(s_tiles + kTileBytes);
 
-  // this CTA's slot: the result itself, or its partial sums
-  float* out_f = corr + (long long)ch * 2 * ntaps;
-  double* out_d = partial + ((long long)ch * p.n_split + part) * 2 * ntaps;
-
-  const long long step_fp = __double2ll_rn(step_c * kQ32);
-  const long long base_fp = __double2ll_rn(rem * kQ32);
-  // this part's 128-sample rows
-  const int rows = (num + 127) >> 7;
-  const int rows_per = (rows + p.n_split - 1) / p.n_split;
-  const int q_lo = part * rows_per;
-  const int q_hi = min(rows, q_lo + rows_per);
-
-  for (int i = tid; i < kCodeLen; i += THREADS)
-    s_chips[i] = chips[(long long)ch * kCodeLen + i];
-  if (tid < ntaps) s_tap[tid] = tap_fp[tid];
-  if (tid < 128) r_phasor((unsigned)tid, carr_fp, &s_vc[tid], &s_vs[tid]);
+  // the first tile's copies fly while the tables are made
+  ShareT sh;
+  part_share(&sh, p, raw, b.off, b.num);
+  walk_start(sh, raw, p.n_raw, t0, 0);
+  load_code<ShareT::kRows>(chips, tap_fp, ch, ntaps);
+  load_r_phasors<ShareT::kRows>(carr_fp);
 
   float dc_r = 0.f, dc_i = 0.f;
-  if (p.remove_dc) {  // the whole block's mean; integer sums, exact in float64
-    double a = 0.0, b = 0.0;
-    for (int k = tid; k < num; k += THREADS) {
-      const PairT v = x[k];
-      a += (double)v.x;
-      b += (double)v.y;
-    }
-    a = warp_sum(a);
-    b = warp_sum(b);
-    if (lane == 0) { s_part[warp][0] = a; s_part[warp][1] = b; }
-    __syncthreads();
-    a = 0.0; b = 0.0;
-    for (int w = 0; w < kWarps; ++w) { a += s_part[w][0]; b += s_part[w][1]; }
-    dc_r = (float)(a / (double)num);
-    dc_i = (float)(b / (double)num);
-    __syncthreads();  // s_part is reused by the tap reduction
-  }
-
-  double acc_i[T], acc_q[T];
-#pragma unroll
-  for (int t = 0; t < T; ++t) { acc_i[t] = 0.0; acc_q[t] = 0.0; }
-
-  // segments of THREADS q-rows, so any block length and any split
-  for (int q0 = q_lo; q0 < q_hi; q0 += THREADS) {
-    q_phasor(phase0, (unsigned)(q0 + tid), carr_fp, &s_uc[tid], &s_us[tid]);
-    __syncthreads();  // also publishes s_chips, s_tap, s_vc/s_vs
-    const float vc = s_vc[tid & 127], vs = s_vs[tid & 127];
-    const int kend = min(num, min(q_hi, q0 + THREADS) * 128);
-    for (int k = q0 * 128 + tid; k < kend; k += THREADS) {
-      const PairT v = x[k];
-      const float xr = (float)v.x - dc_r, xi = (float)v.y - dc_i;
-      float mi, mq;
-      mix(xr, xi, s_uc[(k >> 7) - q0], s_us[(k >> 7) - q0], vc, vs, &mi, &mq);
-      const long long kb = base_fp + (long long)k * step_fp - 1;
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        if (NT > 0 || t < ntaps) {
-          const float cv = s_chips[chip_index(kb, s_tap[t])];
-          acc_i[t] += (double)(cv * mi);
-          acc_q[t] += (double)(cv * mq);
-        }
+  int have = 0;
+  if (p.remove_dc) {  // the whole block's mean; integer sums, exact
+    double a = 0.0, c = 0.0;
+    if (p.n_split == 1) {
+      SumWork<kTileBytes, PairT> sum(sh);
+      walk(sh, raw, p.n_raw, t0, t1, sum, NoAhead());
+      a = warp_sum((double)sum.sum_r);
+      c = warp_sum((double)sum.sum_i);
+      if (lane == 0) { s_part[warp][0] = a; s_part[warp][1] = c; }
+      __syncthreads();
+      a = 0.0; c = 0.0;
+      for (int w = 0; w < kWarps; ++w) { a += s_part[w][0]; c += s_part[w][1]; }
+      __syncthreads();  // s_part is reused by the tap reduction
+      have = sh.n_tiles == 1 ? sh.need(0) : 0;  // still in shared memory
+    } else {  // written by corr_bank_dc_kernel
+      for (int s = 0; s < p.n_split; ++s) {
+        const double* d = slot_of(p, partial, ch, s) + 2 * p.ntaps;
+        a += d[0];
+        c += d[1];
       }
     }
-    __syncthreads();  // segment's phasors consumed before they change
+    dc_r = (float)(a / (double)b.num);
+    dc_i = (float)(c / (double)b.num);
   }
 
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    if (NT > 0 || t < ntaps) {
-      const double a = warp_sum(acc_i[t]);
-      const double b = warp_sum(acc_q[t]);
-      if (lane == 0) { s_part[warp][2 * t] = a; s_part[warp][2 * t + 1] = b; }
-    }
-  }
-  __syncthreads();
+  if (p.remove_dc && p.n_split == 1) walk_start(sh, raw, p.n_raw, t0, have);
+  WorkT work(sh, ntaps);
+  work.phase0 = phase0;
+  work.carr_fp = carr_fp;
+  work.base_fp = __double2ll_rn(b.rem * kQ32);
+  work.step_fp = __double2ll_rn(b.step_c * kQ32);
+  work.dc_r = dc_r;
+  work.dc_i = dc_i;
+  walk(sh, raw, p.n_raw, t0, t1, work, NoAhead());
+
+  const double v = cta_tap_sum<NT>(work.acc_i, work.acc_q, ntaps, s_part);
   if (tid < 2 * ntaps) {
-    double v = 0.0;
-    for (int w = 0; w < kWarps; ++w) v += s_part[w][tid];
-    if (p.n_split == 1) out_f[tid] = (float)v; else out_d[tid] = v;
+    if (p.n_split == 1)
+      corr[(long long)ch * 2 * ntaps + tid] = (float)v;
+    else
+      slot_of(p, partial, ch, part)[tid] = v;
   }
 }
 
@@ -167,13 +205,13 @@ __device__ __forceinline__ void refuse_block(const Params& p, float* corr,
     if (p.n_split == 1)
       corr[(long long)ch * 2 * p.ntaps + tid] = 0.f;
     else
-      partial[((long long)ch * p.n_split + part) * 2 * p.ntaps + tid] = 0.0;
+      slot_of(p, partial, ch, part)[tid] = 0.0;
   }
 }
 
 // The fetching entry: each channel's window starts at ptr_off in the chunk.
-template <int NT, int THREADS, typename RawT>
-__global__ void __launch_bounds__(THREADS)
+template <int NT, typename RawT>
+__global__ void __launch_bounds__(threads_for(NT))
 corr_bank_kernel(Params p, const RawT* __restrict__ raw,
                  const float* __restrict__ chips,
                  const long long* __restrict__ tap_fp,
@@ -187,25 +225,21 @@ corr_bank_kernel(Params p, const RawT* __restrict__ raw,
                  int* __restrict__ fault) {
   typedef typename PairOf<RawT>::type PairT;
   const int ch = blockIdx.x;
-  const long long off = ptr_off[ch];
-  const long long num = num_in[ch];
-  const double rem = rem_chip[ch];
-  const double step_c = code_freq[ch] / p.fs;  // chips per sample
-  if (!(num >= 1 && num <= (long long)p.blk) || off < 0 ||
-      off + num > p.n_raw || !isfinite(rem) || !isfinite(step_c)) {
+  const Block b = block_of(p, ch, ptr_off, rem_chip, code_freq, num_in);
+  if (!b.ok) {
     refuse_block(p, corr, partial, fault);
     return;
   }
-  bank_block<NT, THREADS, PairT>(
-      p, reinterpret_cast<const PairT*>(raw) + off, (int)num, rem, step_c,
+  bank_block<NT, PairT>(
+      p, reinterpret_cast<const PairT*>(raw), b,
       (unsigned)(unsigned long long)phase_fp[ch],
       (unsigned)(unsigned long long)carr_fp[ch], chips, tap_fp, corr, partial);
 }
 
 // The windows entry: channel ch's window is win[ch * blk : (ch + 1) * blk],
-// cut out by the caller, so only the block length can be out of range.
-template <int NT, int THREADS, typename RawT>
-__global__ void __launch_bounds__(THREADS)
+// cut out by the caller.
+template <int NT, typename RawT>
+__global__ void __launch_bounds__(threads_for(NT))
 corr_bank_windows_kernel(Params p, const RawT* __restrict__ win,
                          const float* __restrict__ chips,
                          const long long* __restrict__ tap_fp,
@@ -219,29 +253,62 @@ corr_bank_windows_kernel(Params p, const RawT* __restrict__ win,
                          int* __restrict__ fault) {
   typedef typename PairOf<RawT>::type PairT;
   const int ch = blockIdx.x;
-  const long long num = num_in[ch];
-  const double rem = rem_chip[ch];
-  const double step_c = code_freq[ch] / p.fs;  // chips per sample
-  if (!(num >= 1 && num <= (long long)p.blk) || !isfinite(rem) ||
-      !isfinite(step_c)) {
+  const Block b = block_of(p, ch, nullptr, rem_chip, code_freq, num_in);
+  if (!b.ok) {
     refuse_block(p, corr, partial, fault);
     return;
   }
-  bank_block<NT, THREADS, PairT>(
-      p, reinterpret_cast<const PairT*>(win) + (long long)ch * p.blk, (int)num,
-      rem, step_c, (unsigned)(unsigned long long)phase_fp[ch],
+  bank_block<NT, PairT>(
+      p, reinterpret_cast<const PairT*>(win), b,
+      (unsigned)(unsigned long long)phase_fp[ch],
       (unsigned)(unsigned long long)carr_fp[ch], chips, tap_fp, corr, partial);
 }
 
+// DC removal with n_split > 1, before the correlation: each part's integer
+// sums into its slot, so the window is read once for the mean.  Both entries
+// (ptr_off == nullptr: windows).
+template <typename RawT>
+__global__ void __launch_bounds__(kDcThreads)
+corr_bank_dc_kernel(Params p, const RawT* __restrict__ raw,
+                    const long long* __restrict__ ptr_off,
+                    const double* __restrict__ rem_chip,
+                    const double* __restrict__ code_freq,
+                    const long long* __restrict__ num_in,
+                    double* __restrict__ partial) {
+  typedef typename PairOf<RawT>::type PairT;
+  typedef Share<kTileBytes, PairT> ShareT;
+  constexpr int kWarps = kDcThreads / 32;
+  const int ch = blockIdx.x, tid = threadIdx.x;
+  const Block b = block_of(p, ch, ptr_off, rem_chip, code_freq, num_in);
+  if (!b.ok) return;  // the correlating kernel refuses the channel
+  extern __shared__ __align__(16) unsigned char s_tiles[];
+  __shared__ double s_part[kWarps][2];
+  const PairT* x = reinterpret_cast<const PairT*>(raw);
+  ShareT sh;
+  part_share(&sh, p, x, b.off, b.num);
+  SumWork<kTileBytes, PairT> sum(sh);
+  walk_start(sh, x, p.n_raw, reinterpret_cast<PairT*>(s_tiles), 0);
+  walk(sh, x, p.n_raw, reinterpret_cast<PairT*>(s_tiles),
+       reinterpret_cast<PairT*>(s_tiles + kTileBytes), sum, NoAhead());
+  const double a = warp_sum((double)sum.sum_r);
+  const double c = warp_sum((double)sum.sum_i);
+  if ((tid & 31) == 0) { s_part[tid >> 5][0] = a; s_part[tid >> 5][1] = c; }
+  __syncthreads();
+  if (tid < 2) {
+    double v = 0.0;
+    for (int w = 0; w < kWarps; ++w) v += s_part[w][tid];
+    slot_of(p, partial, ch, blockIdx.y)[2 * p.ntaps + tid] = v;
+  }
+}
+
 // A channel's partial sums added in part order, rounded to float32 once.
-__global__ void corr_bank_finish(int n_split, int n_out,
-                                 const double* __restrict__ partial,
+__global__ void corr_bank_finish(Params p, const double* __restrict__ partial,
                                  float* __restrict__ corr) {
-  const int ch = blockIdx.x, j = threadIdx.x;
+  const int ch = blockIdx.x, j = threadIdx.x, n_out = 2 * p.ntaps;
   if (j >= n_out) return;
-  const double* src = partial + (long long)ch * n_split * n_out + j;
+  const double* src = partial + (long long)ch * p.n_split * (n_out + 2) + j;
   double v = 0.0;
-  for (int s = 0; s < n_split; ++s) v += src[(long long)s * n_out];
+  for (int s = 0; s < p.n_split; ++s) v += src[(long long)s * (n_out + 2)];
   corr[(long long)ch * n_out + j] = (float)v;
 }
 
@@ -257,15 +324,20 @@ void launch(const Params& p, const void* raw, const float* chips,
             cudaStream_t stream) {
   const RawT* r = static_cast<const RawT*>(raw);
   const dim3 grid(p.n_ch, p.n_split);
+  if (p.remove_dc && p.n_split > 1)
+    corr_bank_dc_kernel<RawT><<<grid, kDcThreads, kSmemBytes, stream>>>(
+        p, r, ptr_off, rem_chip, code_freq, num, partial);
 #define BANK_LAUNCH(NT)                                                       \
   if (ptr_off)                                                                \
-    corr_bank_kernel<NT, 256, RawT><<<grid, 256, 0, stream>>>(                \
+    corr_bank_kernel<NT, RawT>                                                \
+        <<<grid, threads_for(NT), kSmemBytes, stream>>>(                      \
         p, r, chips, tap_fp, ptr_off, rem_chip, code_freq, phase_fp, carr_fp, \
         num, corr, partial, fault);                                           \
   else                                                                        \
-    corr_bank_windows_kernel<NT, 256, RawT><<<grid, 256, 0, stream>>>(        \
-        p, r, chips, tap_fp, rem_chip, code_freq, phase_fp, carr_fp, num,     \
-        corr, partial, fault)
+    corr_bank_windows_kernel<NT, RawT>                                        \
+        <<<grid, threads_for(NT), kSmemBytes, stream>>>(                      \
+            p, r, chips, tap_fp, rem_chip, code_freq, phase_fp, carr_fp, num, \
+            corr, partial, fault)
   switch (p.ntaps) {
     case 3: BANK_LAUNCH(3); break;    // E/P/L
     case 25: BANK_LAUNCH(25); break;  // the CT-POS multicorrelator grid
@@ -274,8 +346,7 @@ void launch(const Params& p, const void* raw, const float* chips,
   }
 #undef BANK_LAUNCH
   if (p.n_split > 1)
-    corr_bank_finish<<<p.n_ch, 2 * kMaxTaps, 0, stream>>>(
-        p.n_split, 2 * p.ntaps, partial, corr);
+    corr_bank_finish<<<p.n_ch, 2 * kMaxTaps, 0, stream>>>(p, partial, corr);
 }
 
 int launch_checked(Params p, const void* raw, int raw_int16,
@@ -302,8 +373,9 @@ int launch_checked(Params p, const void* raw, int raw_int16,
 // raw (n_raw, 2) int8 or int16; chips (n_ch, 1023) float32; tap_fp (ntaps,)
 // Q32 tap offsets; per channel ptr_off, phase_fp, carr_fp, num (int64; the
 // phase words are taken mod 2^32) and rem_chip, code_freq (float64).
-// corr (n_ch, ntaps, 2) float32; partial (n_ch, n_split, ntaps, 2) float64
-// scratch (unused when n_split == 1); fault one int32, raised, never cleared.
+// corr (n_ch, ntaps, 2) float32; partial (n_ch, n_split, ntaps + 1, 2) float64
+// scratch (a part's tap sums, then its integer sums for DC removal; unused
+// when n_split == 1); fault one int32, raised, never cleared.
 // Launches on `stream`, does not synchronise, returns cudaGetLastError().
 extern "C" int corr_bank_launch(
     const void* raw, int raw_int16, long long n_raw, const float* chips,

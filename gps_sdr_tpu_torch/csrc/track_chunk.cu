@@ -4,50 +4,76 @@
 // (_fused_kernel): every coherent block of one chunk, for every channel, in
 // one launch (trackingCT.m:96-150, trackingCT_POS_updated.m:210-270).
 //
-// What bounds it on this card: the serial block chain.  Each block's length
-// and replica depend on the loop state the previous block left, and a
-// receiver tracks a handful of channels, so the work is a few long serial
-// chains on 132 SMs -- neither bytes (1 ms at 58 MHz is 116 KB of int8 IQ)
-// nor FLOPs are the limit.
+// What bounds it on this card: a block's length and replica depend on the
+// loop state the previous block left, so blocks of one channel are serial,
+// and a receiver tracks a handful of channels.  Within a block, though, the
+// samples are independent, and the time of a block is the dispatch of its
+// per-sample instructions on however many SMs share it, plus the latency of
+// its loads, plus what closes the block (a reduction, a barrier, the loop
+// filters).  Bytes (1 ms at 58 MHz is 116 KB of int8 IQ) and float32
+// operations are far below the card's rates.
 //
-// Design: one CTA per channel loops over the blocks.  Each block's samples
-// are striped over the CTA's threads, read straight from the int8/int16 chunk
-// in device memory (no window size limit, so any pdi) and cast in registers.
-// The carrier is the Q32 phasor product of the JAX scan (tracking.py:274-288):
-// for sample k = 128 q + r, e^{i theta_k} = e^{i theta_q} e^{i theta_r} with
-// both phases exact int32 Q32 words; the 128 r-phasors are computed once per
-// block and the q-phasors once per 128 samples, into shared memory, so a
-// sample costs two shared loads and four multiplies instead of a sincos.
-// Every tap correlates against the code chip at the exact Q32 index
-// ((base + tap + k*step - 1) >> 32) mod 1023, read from a 1023-entry table in
-// shared memory.  The sums are float64 (the +-1 chip times a float32 sample
-// is exact), reduced by warp shuffles and one pass over shared memory, and
-// rounded to float32 once.  Thread 0 runs the discriminators and both
-// 2nd-order loop filters in float64 (the TPU kernel's compensated float32
-// forms existed only because the TPU emulates float64) and a barrier hands
-// the new NCO state to all threads.
+// Design: a thread-block cluster per channel.  The grid is (channel, rank)
+// with the cluster along the rank axis; rank r of C takes a contiguous share
+// of the block's 128-sample rows (the last rank what remains up to `num`),
+// correlates it with the shared sample loop of nco_common.cuh (16-byte
+// asynchronous copies into shared memory, one float64 conversion per sample,
+// the chip index kept along a thread's run of samples), reduces its float64
+// tap sums in the CTA, and writes them into every rank's shared memory
+// through distributed shared memory, into the slot of the block's parity.
+// One cluster barrier per block; then every rank adds the C slots in rank
+// order, rounds to float32 once and closes both loops itself: the same
+// float64 arithmetic on the same numbers gives every thread of every rank
+// the same state, in registers, so nothing is handed back and no second
+// barrier is needed.  Two parity slots suffice because no rank can be more
+// than one barrier ahead.  Rank 0 writes the records.
 //
-// The plain PyTorch version (ops/track_chunk.py) evaluates the same
+// The next block is staged while this one is correlated: its start
+// (ptr + num) is known at the top of a block and its length to within a few
+// samples, so each rank starts the copies of the first tile of its share of
+// block n+1 before it works on block n.  The share boundaries of block n+1
+// are fixed then, from block n's length; whatever rows the final `num` adds
+// or drops fall to the last rank, and a tile that was staged short is topped
+// up when the block begins.  A share larger than a tile (a 10 ms block, or
+// C = 1) is walked as a ring of tiles with the same copies, so any pdi.
+// With DC removal each rank first sums its share's integers (exact), the
+// cluster adds them in one more exchange, and the correlation pass reuses
+// the tile in shared memory when the share is one tile.
+//
+// The plain PyTorch version (ops/track_chunk.py) evaluates the same float32
 // operations in the same order; built with -fmad=false (no contraction of
-// a*b+c) and with IEEE division and sqrt, the kernel then gives the same
-// float32 correlators except where a float64 sum lies within ~1e-15 of a
-// float32 rounding boundary.  That matters: the loops round float64 NCO
-// words to integers every block, and a difference of one rounding sends
-// the two loops down different (equally valid) noise trajectories.
+// a*b+c) and with IEEE division and sqrt, the kernel gives the same float32
+// correlators: the float64 sum of the exact products rounds to the same
+// float32 in any order.  That matters: the loops round float64 NCO words to
+// integers every block, and a difference of one rounding sends two loops
+// down different (equally valid) noise trajectories.
 //
 // The PLL discriminator is atan(Q/I) with the I == 0 guard, not atan2: the
 // Costas loop must not see the data-bit sign.  Rounding is half to even
 // (__double2ll_rn, rint) wherever the JAX scan uses jnp.round.
 //
 // A block whose window would leave the chunk (or whose length is not
-// finite) sets *fault = 1 + channel and stops that channel; the host raises
-// when it reads the records back.
+// finite) sets *fault = 1 + channel and stops that channel: every rank of
+// the cluster holds the same state, so all leave at the same block, and the
+// host raises when it reads the records back.
+
+#include <cooperative_groups.h>
 
 #include "nco_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace nco;
+
+constexpr int kMaxCluster = 16;
+// a rank's share of a 1 ms block at 58 MHz on 8 ranks is 14.5 KB of int8
+// pairs, 29 KB of int16: one tile.  Three tiles: this block's ring of two
+// and the next block's first.
+constexpr int kTileBytes = 32768;
+constexpr int kSmemBytes = 3 * kTileBytes;
+// samples staged past the end the last rank's share is predicted to have
+constexpr int kMargin = 256;
 
 struct Params {
   long long n_raw;        // samples in the chunk
@@ -55,20 +81,25 @@ struct Params {
   int n_ch, n_steps, ntaps, n_chips;
   int ceil_rounding, remove_dc;
   int i_early, i_prompt, i_late;
+  int cluster;            // CTAs per channel
   double fs, code_freq_basis, sign, dll_freq_sign;
   double dll_a, dll_b, pll_a, pll_b;  // tau2/tau1 and dt/tau1 of each loop
 };
 
-struct ChanState {
-  long long ptr;
-  unsigned phase;  // Q32 carrier phase (int32 bit pattern)
-  double rem, code_freq, carr_freq, carr_basis;
-  double dll_nco, dll_last, pll_nco, pll_last;
-};
+// Rank `rank` of `c` ranks: its samples [lo, hi) of a block of `num` samples
+// whose shares were laid out for a block of `num_geom` samples.  Ranks but
+// the last take whole 128-sample rows; the last takes what remains.
+__device__ __forceinline__ void rank_share(int num, int num_geom, int rank,
+                                           int c, int* lo, int* hi) {
+  const int rows_per = (((num_geom + 127) >> 7) + c - 1) / c;
+  const long long w = (long long)rows_per * 128;
+  *lo = (int)min((long long)num, rank * w);
+  *hi = rank == c - 1 ? num : (int)min((long long)num, (rank + 1) * w);
+}
 
 // NT > 0: tap count fixed at compile time; NT == 0: runtime p.ntaps.
-template <int NT, int THREADS, typename RawT>
-__global__ void __launch_bounds__(THREADS)
+template <int NT, typename RawT>
+__global__ void __launch_bounds__(threads_for(NT))
 track_chunk_kernel(Params p, const RawT* __restrict__ raw,
                    const float* __restrict__ chips,
                    const long long* __restrict__ tap_fp,
@@ -78,198 +109,242 @@ track_chunk_kernel(Params p, const RawT* __restrict__ raw,
                    long long* __restrict__ rec_i,
                    long long* __restrict__ state_i_out,
                    double* __restrict__ state_f_out, int* __restrict__ fault) {
-  constexpr int T = NT > 0 ? NT : kMaxTaps;
-  constexpr int kWarps = THREADS / 32;
-  static_assert(THREADS % 128 == 0, "a thread keeps one r-phasor");
   typedef typename PairOf<RawT>::type PairT;
+  typedef Share<kTileBytes, PairT> ShareT;
+  typedef CorrWork<NT, kTileBytes, PairT> WorkT;
+  constexpr int kWarps = threads_for(NT) / 32;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_rank = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int ntaps = NT > 0 ? NT : p.ntaps;
   const int ch = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const PairT* xs = reinterpret_cast<const PairT*>(raw);
   const long long plane = (long long)p.n_steps * p.n_ch;
 
-  __shared__ float s_chips[kCodeLen];
-  __shared__ long long s_tap[kMaxTaps];
-  __shared__ float s_vc[128], s_vs[128];          // e^{i theta_r}
-  __shared__ float s_uc[THREADS], s_us[THREADS];  // e^{i theta_q}, a segment
-  __shared__ double s_part[kWarps][2 * kMaxTaps];
-  __shared__ float s_corr[2 * kMaxTaps];
-  __shared__ ChanState s;
+  extern __shared__ __align__(16) unsigned char s_tiles[];
+  __shared__ double s_part[kWarps][2 * WorkT::T];
+  // what the ranks exchange, by block parity: tap sums and integer sums
+  __shared__ double s_x[2][kMaxCluster][2 * kMaxTaps];
+  __shared__ double s_dc[2][kMaxCluster][2];
 
-  for (int i = tid; i < kCodeLen; i += THREADS)
-    s_chips[i] = chips[(long long)ch * kCodeLen + i];
-  if (tid < ntaps) s_tap[tid] = tap_fp[tid];
-  if (tid == 0) {
-    const double* f = state_f + ch * 8;
-    s.ptr = state_i[ch * 2];
-    s.phase = (unsigned)state_i[ch * 2 + 1];
-    s.rem = f[0]; s.code_freq = f[1]; s.carr_freq = f[2]; s.carr_basis = f[3];
-    s.dll_nco = f[4]; s.dll_last = f[5]; s.pll_nco = f[6]; s.pll_last = f[7];
-  }
-  __syncthreads();
+  // the loop state, the same in every thread of the cluster
+  long long ptr = state_i[ch * 2];
+  unsigned phase = (unsigned)state_i[ch * 2 + 1];  // Q32 carrier phase
+  const double* f = state_f + ch * 8;
+  double rem = f[0], code_freq = f[1], carr_freq = f[2];
+  const double carr_basis = f[3];
+  double dll_nco = f[4], dll_last = f[5], pll_nco = f[6], pll_last = f[7];
+
+  load_code<ShareT::kRows>(chips, tap_fp, ch, ntaps);
+
+  int num_geom = 0;         // the block length the shares were laid out for
+  long long ahead_a0 = 0;   // what was staged ahead for the next block:
+  int ahead_have = 0;       // tile origin and pairs
+  int slot = 0;             // rotates the three tiles
 
   for (int step = 0; step < p.n_steps; ++step) {
-    // every thread derives the block's NCO words from the same shared state
-    const double rem = s.rem;
-    const double step_c = s.code_freq / p.fs;           // chips per sample
+    const double step_c = code_freq / p.fs;             // chips per sample
     const double n_exact = ((double)p.n_chips - rem) / step_c;
     const double num_d = p.ceil_rounding ? ceil(n_exact) : rint(n_exact);
-    const long long off = s.ptr - p.chunk_start;
+    const long long off = ptr - p.chunk_start;
     if (!(num_d >= 1.0 && num_d <= (double)p.n_raw) || off < 0 ||
         off + (long long)num_d > p.n_raw) {
-      if (tid == 0) atomicCAS(fault, 0, ch + 1);
-      break;  // uniform over the CTA: all threads read the same state
+      if (rank == 0 && tid == 0) atomicCAS(fault, 0, ch + 1);
+      break;  // uniform over the cluster: every thread holds the same state
     }
     const int num = (int)num_d;
-    const long long step_fp = __double2ll_rn(step_c * kQ32);
-    const long long base_fp = __double2ll_rn(rem * kQ32);
+    if (step == 0) num_geom = num;
     const unsigned carr_fp =
-        (unsigned)(long long)__double2ll_rn(s.carr_freq / p.fs * kQ32);
-    const unsigned phase0 = s.phase;
-    const PairT* x = xs + off;
+        (unsigned)(long long)__double2ll_rn(carr_freq / p.fs * kQ32);
+    const int par = step & 1;
 
-    if (tid < 128) r_phasor((unsigned)tid, carr_fp, &s_vc[tid], &s_vs[tid]);
+    int k_lo, k_hi;
+    rank_share(num, num_geom, rank, n_rank, &k_lo, &k_hi);
+    ShareT sh;
+    sh.set(xs, off, k_lo, k_hi);
+    int have = (ahead_have > 0 && ahead_a0 == sh.a0) ? ahead_have : 0;
+    PairT* t_cur = reinterpret_cast<PairT*>(s_tiles + (slot % 3) * kTileBytes);
+    PairT* t_ring =
+        reinterpret_cast<PairT*>(s_tiles + ((slot + 1) % 3) * kTileBytes);
+    PairT* t_next =
+        reinterpret_cast<PairT*>(s_tiles + ((slot + 2) % 3) * kTileBytes);
+    slot += 2;
+
+    load_r_phasors<ShareT::kRows>(carr_fp);
+
+    // the first tile of this rank's share of the next block, which starts
+    // at off + num and is laid out for a block of `num` samples
+    auto ahead = [&]() {
+      ahead_have = 0;
+      if (step + 1 < p.n_steps) {
+        int lo, hi;
+        rank_share(num + kMargin, num, rank, n_rank, &lo, &hi);
+        if (lo < num && lo < hi) {
+          const long long a0 = align_down16(xs, off + num + lo);
+          const long long want = off + num + hi - a0;
+          const int n = (int)min((long long)ShareT::TP,
+                                 (want + ShareT::G - 1) / ShareT::G * ShareT::G);
+          stage(t_next, a0, a0, a0 + n, xs, p.n_raw);
+          ahead_a0 = a0;
+          ahead_have = n;
+        }
+      }
+      cp_async_commit();
+    };
 
     float dc_r = 0.f, dc_i = 0.f;
     if (p.remove_dc) {  // integer sums: exact in float64, order-free
-      double a = 0.0, b = 0.0;
-      for (int k = tid; k < num; k += THREADS) {
-        const PairT v = x[k];
-        a += (double)v.x;
-        b += (double)v.y;
-      }
-      a = warp_sum(a);
-      b = warp_sum(b);
+      SumWork<kTileBytes, PairT> sum(sh);
+      walk_start(sh, xs, p.n_raw, t_cur, have);
+      walk(sh, xs, p.n_raw, t_cur, t_ring, sum, NoAhead());
+      const double a = warp_sum((double)sum.sum_r);
+      const double b = warp_sum((double)sum.sum_i);
       if (lane == 0) { s_part[warp][0] = a; s_part[warp][1] = b; }
       __syncthreads();
-      a = 0.0; b = 0.0;
-      for (int w = 0; w < kWarps; ++w) { a += s_part[w][0]; b += s_part[w][1]; }
-      dc_r = (float)(a / (double)num);
-      dc_i = (float)(b / (double)num);
-      __syncthreads();  // s_part is reused by the tap reduction
-    }
-
-    double acc_i[T], acc_q[T];
-#pragma unroll
-    for (int t = 0; t < T; ++t) { acc_i[t] = 0.0; acc_q[t] = 0.0; }
-
-    // segments of THREADS q-rows (THREADS*128 samples): any block length
-    for (int q0 = 0; q0 * 128 < num; q0 += THREADS) {
-      q_phasor(phase0, (unsigned)(q0 + tid), carr_fp, &s_uc[tid], &s_us[tid]);
-      __syncthreads();  // also publishes s_vc/s_vs on the first segment
-      const float vc = s_vc[tid & 127], vs = s_vs[tid & 127];
-      const int kend = min(num, (q0 + THREADS) * 128);
-      for (int k = q0 * 128 + tid; k < kend; k += THREADS) {
-        const PairT v = x[k];
-        const float xr = (float)v.x - dc_r, xi = (float)v.y - dc_i;
-        float mi, mq;  // I = imag(x e^{i theta}), Q = real
-        mix(xr, xi, s_uc[(k >> 7) - q0], s_us[(k >> 7) - q0], vc, vs, &mi, &mq);
-        const long long kb = base_fp + (long long)k * step_fp - 1;
-#pragma unroll
-        for (int t = 0; t < T; ++t) {
-          if (NT > 0 || t < ntaps) {
-            const float cv = s_chips[chip_index(kb, s_tap[t])];
-            acc_i[t] += (double)(cv * mi);
-            acc_q[t] += (double)(cv * mq);
-          }
-        }
+      if (tid < 2) {
+        double v = 0.0;
+        for (int w = 0; w < kWarps; ++w) v += s_part[w][tid];
+        for (int r = 0; r < n_rank; ++r)
+          *cluster.map_shared_rank(&s_dc[par][rank][tid], r) = v;
       }
-      __syncthreads();  // segment's phasors consumed before they change
+      cluster.sync();
+      double sum_r = 0.0, sum_i = 0.0;
+      for (int r = 0; r < n_rank; ++r) {
+        sum_r += s_dc[par][r][0];
+        sum_i += s_dc[par][r][1];
+      }
+      dc_r = (float)(sum_r / (double)num);
+      dc_i = (float)(sum_i / (double)num);
+      // a share of one tile is still in shared memory
+      have = sh.n_tiles == 1 ? sh.need(0) : 0;
     }
 
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      if (NT > 0 || t < ntaps) {
-        const double a = warp_sum(acc_i[t]);
-        const double b = warp_sum(acc_q[t]);
-        if (lane == 0) { s_part[warp][2 * t] = a; s_part[warp][2 * t + 1] = b; }
-      }
-    }
-    __syncthreads();
+    WorkT work(sh, ntaps);
+    work.phase0 = phase;
+    work.carr_fp = carr_fp;
+    work.base_fp = __double2ll_rn(rem * kQ32);
+    work.step_fp = __double2ll_rn(step_c * kQ32);
+    work.dc_r = dc_r;
+    work.dc_i = dc_i;
+    walk_start(sh, xs, p.n_raw, t_cur, have);
+    walk(sh, xs, p.n_raw, t_cur, t_ring, work, ahead);
+
+    const double mine = cta_tap_sum<NT>(work.acc_i, work.acc_q, ntaps, s_part);
     if (tid < 2 * ntaps) {
-      double v = 0.0;
-      for (int w = 0; w < kWarps; ++w) v += s_part[w][tid];
-      s_corr[tid] = (float)v * (float)p.sign;
+      for (int r = 0; r < n_rank; ++r)
+        *cluster.map_shared_rank(&s_x[par][rank][tid], r) = mine;
     }
-    __syncthreads();
+    cluster.sync();  // the one barrier of a block (two with DC removal)
 
-    if (tid == 0) {
-      const float* c = s_corr;
-      const long long row = (long long)step * p.n_ch + ch;
-      float* cr = corr + row * ntaps * 2;
-      for (int j = 0; j < 2 * ntaps; ++j) cr[j] = c[j];
-      const float e_i = c[2 * p.i_early], e_q = c[2 * p.i_early + 1];
-      const float p_i = c[2 * p.i_prompt], p_q = c[2 * p.i_prompt + 1];
-      const float l_i = c[2 * p.i_late], l_q = c[2 * p.i_late + 1];
-      const double e = (double)sqrtf(e_i * e_i + e_q * e_q);
-      const double l = (double)sqrtf(l_i * l_i + l_q * l_q);
-      const double code_err = 0.5 * (e - l) / fmax(e + l, 1e-30);
-      const double dll =
-          s.dll_nco + p.dll_a * (code_err - s.dll_last) + code_err * p.dll_b;
-      const double code_freq = p.code_freq_basis + p.dll_freq_sign * dll;
-      const float safe_pi = p_i == 0.f ? 1e-30f : p_i;
-      const double carr_err = (double)(atanf(p_q / safe_pi) / (float)kTwoPi);
-      const double pll =
-          s.pll_nco + p.pll_a * (carr_err - s.pll_last) + carr_err * p.pll_b;
-      const double carr_freq = s.carr_basis + pll;
-      const double rem_new = (double)num * step_c + rem - (double)p.n_chips;
-      const unsigned phase_new = phase0 + (unsigned)num * carr_fp;
-      const long long ptr_new = s.ptr + num;
+    // the ranks' sums in rank order, rounded to float32 once
+    auto total = [&](int j) {
+      double v = 0.0;
+      for (int r = 0; r < n_rank; ++r) v += s_x[par][r][j];
+      return (float)v * (float)p.sign;
+    };
+    const long long row = (long long)step * p.n_ch + ch;
+    if (rank == 0 && tid < 2 * ntaps)
+      corr[row * ntaps * 2 + tid] = total(tid);
 
+    const float e_i = total(2 * p.i_early), e_q = total(2 * p.i_early + 1);
+    const float p_i = total(2 * p.i_prompt), p_q = total(2 * p.i_prompt + 1);
+    const float l_i = total(2 * p.i_late), l_q = total(2 * p.i_late + 1);
+    const double e = (double)sqrtf(e_i * e_i + e_q * e_q);
+    const double l = (double)sqrtf(l_i * l_i + l_q * l_q);
+    const double code_err = 0.5 * (e - l) / fmax(e + l, 1e-30);
+    const double dll =
+        dll_nco + p.dll_a * (code_err - dll_last) + code_err * p.dll_b;
+    const double code_freq_new = p.code_freq_basis + p.dll_freq_sign * dll;
+    const float safe_pi = p_i == 0.f ? 1e-30f : p_i;
+    const double carr_err = (double)(atanf(p_q / safe_pi) / (float)kTwoPi);
+    const double pll =
+        pll_nco + p.pll_a * (carr_err - pll_last) + carr_err * p.pll_b;
+    const double carr_freq_new = carr_basis + pll;
+    const double rem_new = (double)num * step_c + rem - (double)p.n_chips;
+    const unsigned phase_new = phase + (unsigned)num * carr_fp;
+    const long long ptr_new = ptr + num;
+
+    if (rank == 0 && tid == 0) {
       rec_f[0 * plane + row] = code_err;
       rec_f[1 * plane + row] = carr_err;
-      rec_f[2 * plane + row] = code_freq;
-      rec_f[3 * plane + row] = carr_freq;
+      rec_f[2 * plane + row] = code_freq_new;
+      rec_f[3 * plane + row] = carr_freq_new;
       rec_f[4 * plane + row] = rem_new;
       rec_i[0 * plane + row] = num;
       rec_i[1 * plane + row] = ptr_new;
       rec_i[2 * plane + row] = (long long)(int)phase_new;
-
-      s.ptr = ptr_new; s.phase = phase_new; s.rem = rem_new;
-      s.code_freq = code_freq; s.carr_freq = carr_freq;
-      s.dll_nco = dll; s.dll_last = code_err;
-      s.pll_nco = pll; s.pll_last = carr_err;
     }
-    __syncthreads();
+
+    ptr = ptr_new; phase = phase_new; rem = rem_new;
+    code_freq = code_freq_new; carr_freq = carr_freq_new;
+    dll_nco = dll; dll_last = code_err;
+    pll_nco = pll; pll_last = carr_err;
+    num_geom = num;
   }
 
-  if (tid == 0) {
-    double* f = state_f_out + ch * 8;
-    state_i_out[ch * 2] = s.ptr;
-    state_i_out[ch * 2 + 1] = (long long)(int)s.phase;
-    f[0] = s.rem; f[1] = s.code_freq; f[2] = s.carr_freq; f[3] = s.carr_basis;
-    f[4] = s.dll_nco; f[5] = s.dll_last; f[6] = s.pll_nco; f[7] = s.pll_last;
+  // no rank leaves while a copy into its tiles is in flight or another rank
+  // may still write into its slots
+  cp_async_wait<0>();
+  cluster.sync();
+
+  if (rank == 0 && tid == 0) {
+    double* g = state_f_out + ch * 8;
+    state_i_out[ch * 2] = ptr;
+    state_i_out[ch * 2 + 1] = (long long)(int)phase;
+    g[0] = rem; g[1] = code_freq; g[2] = carr_freq; g[3] = carr_basis;
+    g[4] = dll_nco; g[5] = dll_last; g[6] = pll_nco; g[7] = pll_last;
   }
 }
 
 template <typename RawT>
-void launch(const Params& p, const void* raw, const float* chips,
-            const long long* tap_fp, const long long* state_i,
-            const double* state_f, float* corr, double* rec_f, long long* rec_i,
-            long long* state_i_out, double* state_f_out, int* fault,
-            cudaStream_t stream) {
-  const RawT* r = static_cast<const RawT*>(raw);
-  const dim3 grid(p.n_ch);
-  // 3 taps: 512 threads; more taps: 256, so the float64 sums stay in registers
-#define TRACK_LAUNCH(NT, THREADS)                                           \
-  track_chunk_kernel<NT, THREADS, RawT><<<grid, THREADS, 0, stream>>>(      \
-      p, r, chips, tap_fp, state_i, state_f, corr, rec_f, rec_i, state_i_out, \
-      state_f_out, fault)
-  switch (p.ntaps) {
-    case 3: TRACK_LAUNCH(3, 512); break;    // E/P/L (epl, pos_epl)
-    case 25: TRACK_LAUNCH(25, 256); break;  // the CT-POS multicorrelator grid
-    default: TRACK_LAUNCH(0, 256); break;
+const void* kernel_of(int ntaps) {
+  switch (ntaps) {
+    case 3: return (const void*)track_chunk_kernel<3, RawT>;    // E/P/L
+    case 25: return (const void*)track_chunk_kernel<25, RawT>;  // CT-POS grid
+    default: return (const void*)track_chunk_kernel<0, RawT>;
   }
-#undef TRACK_LAUNCH
+}
+
+const void* kernel_of(int ntaps, int raw_int16) {
+  return raw_int16 ? kernel_of<int16_t>(ntaps) : kernel_of<int8_t>(ntaps);
+}
+
+// The attributes a cluster launch of `func` needs; the launch configuration
+// for n_ch clusters of `cluster` CTAs.
+cudaError_t configure(const void* func, int n_ch, int cluster, int ntaps,
+                      cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                      cudaLaunchAttribute* attr) {
+  cudaError_t rc = cudaFuncSetAttribute(
+      func, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (rc != cudaSuccess) return rc;
+  if (cluster > 8) {  // more than the portable maximum
+    rc = cudaFuncSetAttribute(
+        func, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (rc != cudaSuccess) return rc;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = cluster;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(n_ch, cluster);
+  cfg->blockDim = dim3(ntaps == 3 ? threads_for(3) : threads_for(0));
+  cfg->dynamicSmemBytes = kSmemBytes;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // iparams: n_ch, n_steps, ntaps, n_chips, ceil_rounding, remove_dc,
-//          i_early, i_prompt, i_late
+//          i_early, i_prompt, i_late, cluster (CTAs per channel, 1..16)
 // fparams: fs, code_freq_basis, sign, dll_freq_sign, then tau2/tau1 and
 //          dt/tau1 of the DLL and of the PLL
-// Launches on `stream`, does not synchronise, returns cudaGetLastError().
+// Launches on `stream`, does not synchronise, returns the launch's error
+// (a cluster or shared-memory size the card refuses is one).
 extern "C" int track_chunk_launch(
     const void* raw, int raw_int16, long long n_raw, long long chunk_start,
     const float* chips, const long long* tap_fp, const long long* state_i,
@@ -282,19 +357,36 @@ extern "C" int track_chunk_launch(
   p.n_ch = iparams[0]; p.n_steps = iparams[1]; p.ntaps = iparams[2];
   p.n_chips = iparams[3]; p.ceil_rounding = iparams[4]; p.remove_dc = iparams[5];
   p.i_early = iparams[6]; p.i_prompt = iparams[7]; p.i_late = iparams[8];
+  p.cluster = iparams[9];
   p.fs = fparams[0]; p.code_freq_basis = fparams[1]; p.sign = fparams[2];
   p.dll_freq_sign = fparams[3]; p.dll_a = fparams[4]; p.dll_b = fparams[5];
   p.pll_a = fparams[6]; p.pll_b = fparams[7];
-  if (p.n_ch < 1 || p.ntaps < 1 || p.ntaps > kMaxTaps || p.n_steps < 0)
+  if (p.n_ch < 1 || p.ntaps < 1 || p.ntaps > kMaxTaps || p.n_steps < 0 ||
+      p.cluster < 1 || p.cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (raw_int16)
-    launch<int16_t>(p, raw, chips, tap_fp, state_i, state_f, corr, rec_f, rec_i,
-                    state_i_out, state_f_out, fault, st);
-  else
-    launch<int8_t>(p, raw, chips, tap_fp, state_i, state_f, corr, rec_f, rec_i,
-                   state_i_out, state_f_out, fault, st);
+  const void* func = kernel_of(p.ntaps, raw_int16);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t rc = configure(func, p.n_ch, p.cluster, p.ntaps,
+                             static_cast<cudaStream_t>(stream), &cfg, &attr);
+  if (rc != cudaSuccess) return (int)rc;
+  void* args[] = {&p, &raw, &chips, &tap_fp, &state_i, &state_f, &corr,
+                  &rec_f, &rec_i, &state_i_out, &state_f_out, &fault};
+  rc = cudaLaunchKernelExC(&cfg, func, args);
+  if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of `cluster` CTAs the card holds at once for the kernel
+// of this tap count and sample type (cudaOccupancyMaxActiveClusters).
+extern "C" int track_chunk_active_clusters(int n_ch, int cluster, int ntaps,
+                                           int raw_int16, int* n_clusters) {
+  const void* func = kernel_of(ntaps, raw_int16);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t rc = configure(func, n_ch, cluster, ntaps, nullptr, &cfg, &attr);
+  if (rc != cudaSuccess) return (int)rc;
+  return (int)cudaOccupancyMaxActiveClusters(n_clusters, func, &cfg);
 }
 
 extern "C" const char* track_chunk_error_string(int code) {

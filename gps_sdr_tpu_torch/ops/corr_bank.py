@@ -24,8 +24,9 @@ Two implementations of one function:
   `gps_sdr_tpu/ops/pallas_track.py::correlator_bank_hbm`.  One launch moves
   about 116 KB per channel at 58 MHz, so its bound is the launch itself;
   the grid is (channel, part) so that a handful of channels still fill the
-  card, with float64 partial sums added in a fixed order (no floating-point
-  atomics).
+  card, each CTA staging its part through shared memory with 16-byte
+  asynchronous copies, with float64 partial sums added in a fixed order (no
+  floating-point atomics).
 
 `correlator_bank_windows` is the same bank over windows the caller has
 already cut out of the chunk (`WindowCutter`), one (blk, 2) window per
@@ -36,7 +37,9 @@ coherent block longer than 2 ms.  Its kernel is the second entry point of
 `correlator_bank_windows_reference`, is `correlate_blocks` with the
 windows as the chunk.  Both entries share one device function and one
 plain function, so on the same samples they agree bit for bit.  A 10 ms
-block at 58 MHz is 1.16 MB per channel, so this entry is bound by bytes.
+block at 58 MHz is 1.16 MB per channel, so this entry is bound by bytes;
+`default_split` gives a channel one CTA on each of its share of the SMs,
+fewer where a block is too short to be worth that many set-ups.
 
 Each wrapper takes the plain version for a tensor on the CPU and the
 kernel for a CUDA tensor; there is no fallback between them.  Nothing is
@@ -59,7 +62,8 @@ from gps_sdr_tpu_torch.ops.cacode import CODE_LENGTH
 from gps_sdr_tpu_torch.ops.track_chunk import (MAX_TAPS, Q32, BlockGrid,
                                                _wrap32, correlate_blocks)
 
-SM_COUNT = 132   # H100: the default split fills about one wave of CTAs
+SM_COUNT = 132        # H100
+MIN_PART_ROWS = 24    # a part is worth its set-up from 24 rows of 128 samples
 
 
 def tap_offsets_fp(taps: Sequence[float], device) -> torch.Tensor:
@@ -255,9 +259,26 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def default_split(n_ch: int) -> int:
-    """CTAs per channel: about one wave over the card's SMs, at most 16."""
-    return max(1, min(16, SM_COUNT // n_ch))
+def default_split(n_ch: int, blk: int) -> int:
+    """CTAs per channel for a block window of `blk` samples: one wave with
+    one CTA an SM (every CTA makes the channel's code and phasor tables, so
+    a second CTA on an SM costs more set-up than its warps hide, and a wave
+    that does not fill evenly waits for its fullest SM), cut down for a
+    short block until a part is `MIN_PART_ROWS` rows long (below that the
+    launch, the set-up and the second kernel are the floor, and more parts
+    only add to them).  Both limits are what measured best on the card at 1
+    and 10 ms, 3 and 25 taps, DC removal on and off."""
+    return max(1, min(SM_COUNT // n_ch, blk // 128 // MIN_PART_ROWS))
+
+
+def part_share(num: int, n_split: int, part: int) -> Tuple[int, int]:
+    """Samples [lo, hi) of a block of `num` that part `part` of `n_split`
+    correlates: whole 128-sample rows, the kernel's rule (`part_share` in
+    csrc/corr_bank.cu), kept here for the tests that hold it."""
+    rows = (num + 127) >> 7
+    rows_per = -(-rows // n_split)
+    lo = part * rows_per * 128
+    return min(num, lo), min(num, lo + rows_per * 128)
 
 
 def _launch(wrapper, raw, ptr_off, rem_chip, code_freq, phase_fp, carr_fp,
@@ -275,9 +296,10 @@ def _launch(wrapper, raw, ptr_off, rem_chip, code_freq, phase_fp, carr_fp,
     lib = load_library()
     n, ntaps = num.shape[0], tap_fp.shape[0]
     if n_split is None:
-        n_split = default_split(n)
+        n_split = default_split(n, blk)
     corr = torch.empty((n, ntaps, 2), dtype=torch.float32, device=dev)
-    partial = torch.empty((n, n_split, ntaps, 2), dtype=torch.float64,
+    # per part: the tap sums, then its integer sums for DC removal
+    partial = torch.empty((n, n_split, ntaps + 1, 2), dtype=torch.float64,
                           device=dev)
     words = (rem_chip.data_ptr(), code_freq.data_ptr(), phase_fp.data_ptr(),
              carr_fp.data_ptr(), num.data_ptr(), corr.data_ptr(),

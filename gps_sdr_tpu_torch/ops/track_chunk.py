@@ -18,18 +18,21 @@ Two implementations of one function:
 - the CUDA C++ kernel `csrc/track_chunk.cu` (sm_90a), built with nvcc at
   first use into `build/` and bound through a plain C entry point with
   ctypes.  It replaces the TPU kernel
-  `gps_sdr_tpu/ops/pallas_track.py::fused_track_chunk`: one CTA per
-  channel loops over every block of the chunk in one launch, its samples
-  striped over the threads, the taps summed in float64 and reduced by warp
-  shuffles; thread 0 runs the discriminators and filters in float64 and a
-  barrier hands the new NCO words to all threads.  It is bound by the
-  latency of the serial block chain (a handful of channels on 132 SMs),
-  not by bytes or FLOPs.
+  `gps_sdr_tpu/ops/pallas_track.py::fused_track_chunk`: a thread-block
+  cluster per channel loops over every block of the chunk in one launch.
+  Each rank of the cluster correlates a contiguous share of the block from
+  tiles staged in shared memory by 16-byte asynchronous copies (the next
+  block's first tile while this block is correlated), the ranks exchange
+  their float64 tap sums through distributed shared memory at one cluster
+  barrier per block, and every rank closes both loops itself.  Blocks of a
+  channel are serial, so it is bound by the instruction rate and the
+  latencies of one block, not by bytes or FLOPs.
 
 Both evaluate the same float32 operations in the same order (the Q32
 phasor-product carrier of the JAX scan, float64 correlator sums of exact
 ±1·sample products, true divisions, no fused multiply-add), so on the
-card they agree to the float32 rounding of a float64 sum.  That matters
+card they agree to the float32 rounding of a float64 sum, whatever the
+order the samples are summed in.  That matters
 because the loops round float64 NCO words to integers (carr_fp, the block
 length) every block: one flipped rounding sends two otherwise equal loops
 down different, equally valid, noise trajectories.
@@ -43,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +58,7 @@ from gps_sdr_tpu_torch.ops.loops import (dll_discriminator, loop_filter_step,
 
 Q32 = 4294967296.0  # 2**32
 MAX_TAPS = 32
+MAX_CLUSTER = 8     # CTAs per channel at most (the portable cluster size)
 
 _STATE_I = ("ptr", "phase_fp")
 _STATE_F = ("rem_chip", "code_freq", "carr_freq", "carr_freq_basis",
@@ -380,13 +384,50 @@ def load_library() -> ctypes.CDLL:
         p, p, p, p, p, p,                     # corr, rec_f/i, state out, fault
         p, p, p]                              # iparams, fparams, stream
     lib.track_chunk_launch.restype = ctypes.c_int
+    lib.track_chunk_active_clusters.argtypes = [ctypes.c_int] * 4 + [p]
+    lib.track_chunk_active_clusters.restype = ctypes.c_int
     lib.track_chunk_error_string.argtypes = [ctypes.c_int]
     lib.track_chunk_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def cluster_size(n_ch: int, sm_count: int) -> int:
+    """CTAs per channel: the largest power of two, at most `MAX_CLUSTER`,
+    with which every channel's cluster finds SMs of its own (clusters that
+    do not only queue: channels are independent)."""
+    c = 1
+    while 2 * c <= MAX_CLUSTER and n_ch * 2 * c <= sm_count:
+        c *= 2
+    return c
+
+
+def rank_share(num: int, num_geom: int, rank: int, n_rank: int
+               ) -> Tuple[int, int]:
+    """Samples [lo, hi) of a block of `num` that rank `rank` of a cluster of
+    `n_rank` correlates when the shares were laid out for a block of
+    `num_geom` samples (the block before: its length is what is known when
+    the next block's first tiles are staged).  Ranks but the last take whole
+    128-sample rows, the last what remains.  The kernel's rule (`rank_share`
+    in csrc/track_chunk.cu), kept here for the tests that hold it."""
+    rows_per = -(-((num_geom + 127) >> 7) // n_rank)
+    w = rows_per * 128
+    lo = min(num, rank * w)
+    hi = num if rank == n_rank - 1 else min(num, (rank + 1) * w)
+    return lo, hi
+
+
+def tile_origin(byte_addr: int, pair_bytes: int) -> int:
+    """Pairs between a 16-byte boundary and the pair at `byte_addr`: a tile
+    starts that many pairs before its share's first sample (`align_down16`
+    in csrc/nco_common.cuh)."""
+    return (byte_addr & 15) // pair_bytes
+
+
 def _track_chunk_cuda(raw: torch.Tensor, chunk_start: int, state,
-                      chips: torch.Tensor, spec: ChunkSpec, n_steps: int):
+                      chips: torch.Tensor, spec: ChunkSpec, n_steps: int,
+                      cluster: Optional[int] = None):
+    """`cluster`: CTAs per channel, `cluster_size` when None (the comparison
+    of cluster sizes on the card gives it)."""
     dev = raw.device
     if not (raw.is_contiguous() and chips.is_contiguous()):
         raise ValueError("raw and chips must be contiguous")
@@ -406,9 +447,12 @@ def _track_chunk_cuda(raw: torch.Tensor, chunk_start: int, state,
     state_f_out = torch.empty_like(state_f)
     fault = torch.zeros(1, dtype=torch.int32, device=dev)
     ie, ip, il = spec.epl
+    if cluster is None:
+        cluster = cluster_size(
+            n, torch.cuda.get_device_properties(dev).multi_processor_count)
     iparams = np.array([n, n_steps, ntaps, spec.n_chips,
                         int(spec.ceil_rounding), int(spec.remove_dc),
-                        ie, ip, il], np.int32)
+                        ie, ip, il, int(cluster)], np.int32)
     fparams = np.array([spec.fs, spec.code_freq_basis, spec.sign,
                         spec.dll_freq_sign, *spec.loop_gains()], np.float64)
     with torch.cuda.device(dev):
@@ -453,6 +497,21 @@ def track_chunk(raw: torch.Tensor, chunk_start: int, state,
 
 
 track_chunk.launches = 0   # kernel launches (the CUDA path only)
+
+
+def active_clusters(n_ch: int, cluster: int, ntaps: int, int16: bool,
+                    device) -> int:
+    """How many clusters of `cluster` CTAs the card holds at once for the
+    kernel of this tap count and sample type."""
+    lib = load_library()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.track_chunk_active_clusters(n_ch, cluster, ntaps, int(int16),
+                                             ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError("track_chunk: occupancy query failed: "
+                           + lib.track_chunk_error_string(rc).decode())
+    return out.value
 
 
 def raise_on_fault(records: Dict[str, torch.Tensor]) -> None:

@@ -265,3 +265,40 @@ def test_cuda_kernel_matches_plain():
         np.testing.assert_allclose(out.carr_freq, ref.carr_freq, atol=0.05)
         dphi = np.angle(np.exp(1j * (out.rem_phase - ref.rem_phase)))
         assert np.max(np.abs(dphi)) < 0.02
+
+
+@pytest.mark.gpu
+def test_cuda_cluster_sizes_agree():
+    """One CTA per channel against the cluster size the wrapper chooses, on
+    the card: every record and the state after it equal bit for bit, with DC
+    removal on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gps_sdr_tpu_torch.config import (FileConfig, ReceiverConfig,
+                                          SignalConfig)
+    dev = torch.device("cuda")
+    tcfg = ReceiverConfig(file=FileConfig(name="synthetic", skip_ms=0),
+                          signal=SignalConfig(f_if=F_IF, fs=FS))
+    iq = generate_if_samples(tcfg, [TSyntheticSV(**sv) for sv in SVS],
+                             N_MS + 5, noise_std=4.0, seed=5, device=dev)
+    src = TIFSampleSource.from_array(quantize_iq(iq), tcfg.file)
+    delays, fine = _init(tcfg)
+    state = t_init(tcfg, delays, fine, dev)
+    chips = chip_tables([sv["prn"] for sv in SVS], dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tc.cluster_size(len(SVS), sms) > 1
+    for kind, n_steps in (("epl", N_MS), ("pos_multicorr", 120)):
+        for remove_dc in (False, True):
+            spec = getattr(TTrackParams, kind)(tcfg).chunk_spec(tcfg)
+            spec = spec._replace(remove_dc=remove_dc)
+            start = int(state.ptr.min())
+            n = int(state.ptr.max()) - start + spec.chunk_samples(n_steps)
+            raw = torch.as_tensor(src.read_iq_values(start, n)).to(dev)
+            got, end = tc.track_chunk(raw, start, state, chips, spec, n_steps)
+            one, end1 = tc._track_chunk_cuda(raw, start, state, chips, spec,
+                                             n_steps, cluster=1)
+            tc.raise_on_fault(got)
+            for f in got:
+                assert torch.equal(got[f], one[f]), (kind, remove_dc, f)
+            for a, b in zip(end, end1):
+                assert torch.equal(a, b), (kind, remove_dc)
