@@ -21,14 +21,18 @@ Phases, each printing one line of evidence:
      from states spread over code phase, carrier frequency and block
      length; the fault flag for a window past the chunk; times of the
      kernel (as split over CTAs and on one CTA per channel), of the plain
-     version and of an empty launch.
+     version and of an empty launch; the prepared launch (BankPlan) bit for
+     bit against correlator_bank, for 4, 8 and 12 channels and for 1, 2 and
+     4 taps (the instance that reads its tap count at run time), its time
+     in a replayed graph and called eagerly, and its fault flag.
    - correlator_bank_windows (phase 2c): the bank over windows already cut
      out, at 3 taps and the 25-tap CT-POS grid, blocks of 1 ms and 10 ms,
      with and without DC removal, on 1 CTA per channel and the default
      split, from the tracked state and from spread states; equal bit for
      bit to correlator_bank on the same samples; the fault flag for a
      block length outside the window; times of the kernel, the wrapper,
-     the window cut, the plain version, and of other splits.
+     the window cut, the plain version, and of other splits; the prepared
+     launch (WindowsPlan) bit for bit against it, in a graph and eagerly.
    - the same 100 blocks of 10 ms through tracking.track_scan (windows
      bank per block) and through track_chunk (one launch): every field
      equal bit for bit; times of both; track_scan's operations and launches per
@@ -37,7 +41,9 @@ Phases, each printing one line of evidence:
    geometry + atmosphere, the repo's e2e workload) synthesized on the card
    into host memory, then Receiver.acquisition → track_for_eph(39800) →
    decode(1000) → usable_svs → ct_position(3000) → vt_position(1000), with
-   both kernels' launches counted.
+   both kernels' launches counted; then 200 ms of vt_scan from the VT
+   stage's own start, run eagerly and replayed as CUDA graphs: every
+   record field and the end state equal bit for bit, ms per step of each.
 4. The reference's 10 ms schedules on the same capture, a second Receiver
    with its own artifact directory: acquisition →
    track_for_eph_reference (500 ms at 1 ms, re-track, 40000 ms at 10 ms
@@ -47,8 +53,9 @@ Phases, each printing one line of evidence:
 
 Then one JSON line on the kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (exit code ≠ 0).
-With --profile-vt, phase 3 also traces 100 ms of vector tracking with
-torch.profiler and prints where the host and the card spend it.  With
+With --profile-vt, phase 3 also traces 100 ms of vt_scan with torch.profiler,
+run eagerly and replayed, and prints where the host and the card spend
+them and how many graph launches a replayed step takes.  With
 --ref-1000, the eph schedule is run once more at the reference's own
 1000 + 38000 ms and what it decodes is printed, without a gate.
 """
@@ -83,6 +90,7 @@ from gps_sdr_tpu_torch.ops import _build
 from gps_sdr_tpu_torch.ops import corr_bank as cb
 from gps_sdr_tpu_torch.ops import track_chunk as tc
 from gps_sdr_tpu_torch.pipeline import Receiver, detect_bit_transition
+from gps_sdr_tpu_torch.receiver import vt as tvt
 from gps_sdr_tpu_torch.receiver.vt import VTParams
 from gps_sdr_tpu_torch.tracking import (TrackParams, chip_tables,
                                         init_track_state, run_tracking)
@@ -500,17 +508,25 @@ def _bank_case(raw, start, nco, chips, taps, blk, remove_dc, scale):
     out, fault = cb.correlator_bank(*args)
     one, fault1 = cb.correlator_bank(*args, n_split=1)
     ref, fault_ref = cb.correlator_bank_reference(*args)
-    for f in (fault, fault1, fault_ref):
+    # the prepared launch (the tracked state's words are columns of a
+    # packed state)
+    plan = cb.BankPlan(raw, chips, tap_fp, FS, blk, remove_dc)
+    words = tuple(t.contiguous() for t in args[1:7])
+    prepared = plan(*words).clone()
+    for f in (fault, fault1, fault_ref, plan.fault):
         cb.raise_on_fault(f)
-    err = max(float((out - ref).abs().max()), float((one - ref).abs().max()))
-    m = dict(max_abs_err=err, bitwise=bool(torch.equal(out, ref)
-                                           and torch.equal(one, ref)),
+    err = max(float((x - ref).abs().max()) for x in (out, one, prepared))
+    m = dict(max_abs_err=err,
+             bitwise=bool(torch.equal(out, ref) and torch.equal(one, ref)),
+             prepared_bitwise=bool(torch.equal(prepared, out)),
              finite=bool(torch.isfinite(out).all()))
-    if not m["finite"] or err > BANK_BOUND_REL * scale:
+    if not (m["finite"] and m["prepared_bitwise"]) \
+            or err > BANK_BOUND_REL * scale:
         raise AssertionError(f"correlator_bank against plain out of bounds "
                              f"({len(taps)} taps, remove_dc={remove_dc}): "
                              f"{m}, scale {scale}")
     m["args"] = args
+    m["plan"], m["words"] = plan, words
     return m
 
 
@@ -567,14 +583,21 @@ def phase_bank_vs_plain(dev: torch.device, shared: dict) -> dict:
             for tag, nco in (("locked", locked), ("spread", spread)):
                 m = _bank_case(raw, start, nco, chips, taps, blk, remove_dc,
                                scale)
-                args = m.pop("args")
+                args, plan = m.pop("args"), m.pop("plan")
+                words = m.pop("words")
                 if tag == "locked":
                     flag = cb.new_fault(dev)
+                    one_cta = cb.BankPlan(raw, chips, args[8], FS, blk,
+                                          remove_dc, n_split=1)
+                    # device time of the prepared launch from a replayed
+                    # graph; host time of the same call run eagerly, and
+                    # of the entry that checks and allocates on every call
                     m["kernel_ms"] = timed_graph_ms(
-                        lambda: cb.correlator_bank(*args, fault=flag), 10)
+                        lambda: plan(*words), 10)
                     m["kernel_1cta_ms"] = timed_graph_ms(
-                        lambda: cb.correlator_bank(*args, fault=flag,
-                                                   n_split=1), 10)
+                        lambda: one_cta(*words), 10)
+                    m["prepared_eager_ms"] = timed_ms(
+                        lambda: plan(*words), 200)
                     m["wrapper_ms"] = timed_ms(
                         lambda: cb.correlator_bank(*args, fault=flag), 50)
                     m["plain_ms"] = timed_ms(
@@ -584,6 +607,50 @@ def phase_bank_vs_plain(dev: torch.device, shared: dict) -> dict:
     res["max_abs_err"] = max(m["max_abs_err"] for m in res["cases"].values())
     res["bitwise"] = all(m["bitwise"] for m in res["cases"].values())
     res["n_split"] = cb.default_split(n, blk)
+    res["threads"] = {f"{t}taps": cb.default_threads(t, res["n_split"], blk)
+                      for t in (3, 29)}
+    # other channel counts than the workload's 8: the first 4, and 12 (the
+    # 8 and the first 4 again, their windows 1000 samples on)
+    tap_fp = cb.tap_offsets_fp(epl, dev)
+    res["channels"] = {}
+    for count in (4, 12):
+        idx = torch.arange(count, device=dev) % n
+        nco = {k: v[idx].contiguous() for k, v in locked.items()}
+        nco["ptr"] = nco["ptr"] + 1000 * (torch.arange(count, device=dev)
+                                          // n)
+        words = (nco["ptr"] - start, nco["rem_chip"], nco["code_freq"],
+                 nco["phase_fp"], nco["carr_fp"], nco["num"])
+        sub = chips[idx].contiguous()
+        plan = cb.BankPlan(raw, sub, tap_fp, FS, blk)
+        got = plan(*words).clone()
+        want, fault_ref = cb.correlator_bank_reference(
+            raw, *words, sub, tap_fp, FS, blk)
+        cb.raise_on_fault(plan.fault)
+        cb.raise_on_fault(fault_ref)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{count} channels: the prepared launch "
+                                 "differs from the plain version")
+        res["channels"][str(count)] = dict(
+            bitwise=True, n_split=cb.default_split(count, blk),
+            kernel_ms=timed_graph_ms(lambda: plan(*words), 10))
+    # tap counts without an instance of their own, on one CTA per channel
+    # and as split: the most threads a CTA of theirs may have
+    res["other_tap_counts"] = {}
+    words = tuple(t.contiguous() for t in (
+        locked["ptr"] - start, locked["rem_chip"], locked["code_freq"],
+        locked["phase_fp"], locked["carr_fp"], locked["num"]))
+    for ntaps in (1, 2, 4):
+        few = cb.tap_offsets_fp(np.linspace(-0.5, 0.5, ntaps), dev)
+        want, _ = cb.correlator_bank_reference(raw, *words, chips, few, FS,
+                                               blk)
+        for n_split in (1, None):
+            plan = cb.BankPlan(raw, chips, few, FS, blk, n_split=n_split)
+            if not torch.equal(plan(*words), want):
+                raise AssertionError(f"{ntaps} taps, n_split={n_split}: the "
+                                     "prepared launch differs from the plain "
+                                     "version")
+            cb.raise_on_fault(plan.fault)
+        res["other_tap_counts"][str(ntaps)] = dict(bitwise=True)
     res["empty_launch_ms"] = timed_graph_ms(lambda: cb.empty_launch(dev), 10)
     res["empty_launch_eager_ms"] = timed_ms(lambda: cb.empty_launch(dev), 200)
 
@@ -606,15 +673,23 @@ def phase_bank_vs_plain(dev: torch.device, shared: dict) -> dict:
         raw, past["ptr"] - start, past["rem_chip"], past["code_freq"],
         past["phase_fp"], past["carr_fp"], past["num"], chips,
         cb.tap_offsets_fp(epl, dev), FS, blk)
+    plan = cb.BankPlan(raw, chips, tap_fp, FS, blk)
+    zeroed = plan(*(t.contiguous() for t in (
+        past["ptr"] - start, past["rem_chip"], past["code_freq"],
+        past["phase_fp"], past["carr_fp"], past["num"])))
     res["fault_flag"] = int(fault[0])
-    try:
-        cb.raise_on_fault(fault)
-    except RuntimeError:
-        pass
-    else:
-        raise AssertionError("a window past the chunk raised no fault")
-    if res["fault_flag"] != n:
-        raise AssertionError(f"fault flag {res['fault_flag']}, expected {n}")
+    res["fault_flag_prepared"] = int(plan.fault[0])
+    for f in (fault, plan.fault):
+        try:
+            cb.raise_on_fault(f)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("a window past the chunk raised no fault")
+    if res["fault_flag"] != n or res["fault_flag_prepared"] != n \
+            or bool(zeroed[n - 1].any()):
+        raise AssertionError(f"fault flags {res['fault_flag']} / "
+                             f"{res['fault_flag_prepared']}, expected {n}")
     evidence("bank_vs_plain", **res)
     return res
 
@@ -649,7 +724,7 @@ def _windows_case(raw, start, nco, chips, taps, blk, remove_dc, scale):
         raise AssertionError(
             f"correlator_bank_windows out of bounds ({len(taps)} taps, "
             f"blk {blk}, remove_dc={remove_dc}): {m}, scale {scale}")
-    m["args"] = args
+    m["args"], m["out"] = args, out
     m["cut"] = (cutter, off)
     return m
 
@@ -716,14 +791,26 @@ def phase_windows_vs_plain(dev: torch.device, shared: dict) -> dict:
                     m = _windows_case(raw, start, nco, chips, taps, blk,
                                       remove_dc, scale)
                     args, (cutter, off) = m.pop("args"), m.pop("cut")
+                    out = m.pop("out")
                     if tag == "locked":
                         flag = cb.new_fault(dev)
+                        # as track_scan calls it: prepared once (the
+                        # tracked state's words are columns of a packed
+                        # state); then the entry that prepares per call
+                        plan, one_cta = (cb.WindowsPlan(
+                            chips, args[7], FS, blk, remove_dc, flag,
+                            n_split=k) for k in (None, 1))
+                        call = tuple(t.contiguous() for t in args[:6])
+                        if not torch.equal(plan(*call), out):
+                            raise AssertionError(
+                                "the prepared windows bank differs from "
+                                "correlator_bank_windows")
                         m["kernel_ms"] = timed_graph_ms(
-                            lambda: cb.correlator_bank_windows(
-                                *args, fault=flag), 10)
+                            lambda: plan(*call), 10)
                         m["kernel_1cta_ms"] = timed_graph_ms(
-                            lambda: cb.correlator_bank_windows(
-                                *args, fault=flag, n_split=1), 5, 5)
+                            lambda: one_cta(*call), 5, 5)
+                        m["prepared_eager_ms"] = timed_ms(
+                            lambda: plan(*call), 50)
                         m["wrapper_ms"] = timed_ms(
                             lambda: cb.correlator_bank_windows(
                                 *args, fault=flag), 50)
@@ -762,10 +849,12 @@ def phase_windows_vs_plain(dev: torch.device, shared: dict) -> dict:
             ("ct25", 10, (8, 16, 32, 64), (False,))):
         args = split_args[(name, pdi)]
         splits = sorted({*splits, cb.default_split(n, args[0].shape[1])})
+        call = tuple(t.contiguous() for t in args[:6])
         for dc in dcs:
+            plans = {k: cb.WindowsPlan(chips, args[7], FS, args[0].shape[1],
+                                       dc, flag, n_split=k) for k in splits}
             res[f"split_{pdi}ms_{name}{'_dc' if dc else ''}_ms"] = {
-                str(k): timed_graph_ms(lambda: cb.correlator_bank_windows(
-                    *args[:-1], dc, fault=flag, n_split=k), 10)
+                str(k): timed_graph_ms(lambda: plans[k](*call), 10)
                 for k in splits}
     args = split_args[("epl3", 10)]
 
@@ -868,34 +957,142 @@ def phase_both_trackers(dev: torch.device, shared: dict) -> dict:
     return res
 
 
-def profile_vt(rx: Receiver, usr: np.ndarray, n_ms: int = 100) -> None:
-    """Trace `n_ms` of vector tracking (CT served from its artifact): the
-    step's operation count and its largest items on the host and the card."""
-    from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        rx.vt_position(n_ms=n_ms, ct_n_ms=CT_MS, init_pos_ecef=usr)
+class FirstScan:
+    """Stands in for `receiver.vt.vt_scan` while the VT stage runs and keeps
+    the arguments of the stage's first call: its chunk, the state the CT
+    stage handed over, the ephemerides and the parameters."""
+
+    def __init__(self):
+        self.scan, self.args = tvt.vt_scan, None
+
+    def __call__(self, *args, **kw):
+        if self.args is None:
+            self.args = args
+        return self.scan(*args, **kw)
+
+    def run(self, n_steps: int, graph: bool):
+        """`n_steps` ms from the kept start; (end state, records, wall s)."""
+        args = self.args[:8] + (n_steps,) + self.args[9:]
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rows = prof.key_averages()
-    ops = [r for r in rows if r.key.startswith("aten::")]
+        t0 = time.perf_counter()
+        state, rec = self.scan(*args, graph=graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cb.raise_on_fault(rec["fault"])
+        return state, rec, wall
+
+
+def solve_capture_check(dev: torch.device, rows: int = 8) -> dict:
+    """What vt_scan's captured step relies on, by itself:
+    torch.linalg.solve_ex on a 16 × 16 float32 system (the EKF's size)
+    captured into a CUDA graph as it is, beside an index_copy_ at a row index
+    that the graph itself advances.  Replayed once per row and no more (a
+    replay past the last row would write out of bounds): every row equal to
+    the eager solve bit for bit, every info 0, the row index at `rows`; the
+    graph is released before the function returns."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(rows, 16, 16, generator=gen, device=dev) \
+        + 16.0 * torch.eye(16, device=dev)
+    b = torch.randn(rows, 16, 8, generator=gen, device=dev)
+    eager = torch.stack([torch.linalg.solve_ex(a[i], b[i])[0]
+                         for i in range(rows)])
+    a_in, b_in = a[0].clone(), b[0].clone()
+    out = torch.zeros_like(b)
+    infos = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+    row = torch.zeros(1, dtype=torch.int64, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x, info = torch.linalg.solve_ex(a_in, b_in)
+        out.index_copy_(0, row, x.unsqueeze(0))
+        infos.index_copy_(0, row, info.reshape(1))
+        row += 1
+    for i in range(rows):
+        a_in.copy_(a[i])
+        b_in.copy_(b[i])
+        graph.replay()
+    torch.cuda.synchronize()
+    res = dict(rows=rows,
+               rows_equal=[bool(torch.equal(out[i], eager[i]))
+                           for i in range(rows)],
+               infos=infos.tolist(), row_index=int(row[0]))
+    del graph
+    torch.cuda.synchronize()
+    if not all(res["rows_equal"]) or any(res["infos"]) \
+            or res["row_index"] != rows:
+        raise AssertionError(f"solve_ex captured into a graph: {res}")
+    return res
+
+
+def vt_graph_vs_eager(first: FirstScan, n_ms: int = 200) -> dict:
+    """`n_ms` of vt_scan from the VT stage's start, run eagerly and
+    replayed as CUDA graphs (a C/N0 window every 20 ms, the adaptive-R
+    update at step 200, four refreshes of which two renew the atmosphere):
+    every record field and the end state equal bit for bit.  Then the
+    whole chunk replayed once more: what a replayed step takes once the
+    chunk's graphs are made, and what making them costs a chunk."""
+    before = cb.correlator_bank.launches
+    runs = {name: first.run(n_ms, graph)
+            for name, graph in (("eager", False), ("graph", True),
+                                ("graph_again", True))}
+    launched = cb.correlator_bank.launches - before
+    whole = first.run(VT_MS, True)[2]
+    cb.correlator_bank.launches = before
+    (st_e, rec_e, _), (st_g, rec_g, _) = runs["eager"], runs["graph"]
+    differ = [k for k in rec_e if not torch.equal(rec_e[k], rec_g[k])] \
+        + [f"state.{k}" for k, v in st_e._asdict().items()
+           if not torch.equal(v, getattr(st_g, k))]
+    res = dict(n_ms=n_ms, fields=len(rec_e), differing=differ,
+               bank_launches=launched,
+               **{f"{name}_ms_per_step": wall / n_ms * 1e3
+                  for name, (_, _, wall) in runs.items()})
+    again = runs["graph_again"][2]
+    res["replayed_ms_per_step"] = (whole - again) / (VT_MS - n_ms) * 1e3
+    res["captures_ms_per_chunk"] = (again - (whole - again)
+                                    / (VT_MS - n_ms) * n_ms) * 1e3
+    if differ or rec_e.keys() != rec_g.keys() or launched != 3 * n_ms:
+        raise AssertionError(f"vt_scan replayed against eager: {res}")
+    res["solve_capture"] = solve_capture_check(st_g.ptr.device)
+    evidence("vt_graph_vs_eager", **res)
+    return res
+
+
+def profile_vt(first: FirstScan, n_ms: int = 100) -> None:
+    """Trace `n_ms` of vt_scan from the VT stage's start, run eagerly
+    and replayed: the step's operation count and its largest items on the
+    host and the card, and the graph launches a replayed step takes."""
+    from torch.profiler import ProfilerActivity, profile
 
     def dev_us(r):
         return getattr(r, "self_device_time_total",
                        getattr(r, "self_cuda_time_total", 0.0))
 
-    evidence(
-        "vt_profile", n_ms=n_ms, wall_s=wall,
-        aten_calls_per_step=sum(r.count for r in ops) / n_ms,
-        host_self_ms_per_step=sum(r.self_cpu_time_total for r in rows)
-        / n_ms / 1e3,
-        device_busy_ms_per_step=sum(dev_us(r) for r in rows) / n_ms / 1e3,
-        top_host=[[r.key, r.count, round(r.self_cpu_time_total / n_ms, 2)]
-                  for r in sorted(rows, key=lambda r: -r.self_cpu_time_total)
-                  [:12]],
-        top_device=[[r.key[:60], r.count, round(dev_us(r) / n_ms, 2)]
-                    for r in sorted(rows, key=lambda r: -dev_us(r))[:8]])
+    before = cb.correlator_bank.launches
+    res = {}
+    for name, graph in (("eager", False), ("graph", True)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, wall = first.run(n_ms, graph)
+        rows = prof.key_averages()
+        res[name] = dict(
+            wall_s=wall,
+            aten_calls_per_step=sum(r.count for r in rows
+                                    if r.key.startswith("aten::")) / n_ms,
+            graph_launches_per_step=sum(
+                r.count for r in rows
+                if r.key in ("cudaGraphLaunch", "cuGraphLaunch")) / n_ms,
+            host_self_ms_per_step=sum(r.self_cpu_time_total for r in rows)
+            / n_ms / 1e3,
+            device_busy_ms_per_step=sum(dev_us(r) for r in rows)
+            / n_ms / 1e3,
+            top_host=[[r.key, r.count,
+                       round(r.self_cpu_time_total / n_ms, 2)]
+                      for r in sorted(rows,
+                                      key=lambda r: -r.self_cpu_time_total)
+                      [:12]],
+            top_device=[[r.key[:60], r.count, round(dev_us(r) / n_ms, 2)]
+                        for r in sorted(rows, key=lambda r: -dev_us(r))[:8]])
+    cb.correlator_bank.launches = before
+    evidence("vt_profile", n_ms=n_ms, **res)
 
 
 def phase_main_path(dev: torch.device, workdir: str,
@@ -943,14 +1140,20 @@ def phase_main_path(dev: torch.device, workdir: str,
     # from the artifact just written, so only the bank launches here
     tc.track_chunk.launches = 0
     cb.correlator_bank.launches = 0
-    vt_trk, vt_sol = stage("vt_ekf_s", lambda: rx.vt_position(
-        n_ms=VT_MS, ct_n_ms=CT_MS, init_pos_ecef=usr))
+    first_scan = tvt.vt_scan = FirstScan()
+    try:
+        vt_trk, vt_sol = stage("vt_ekf_s", lambda: rx.vt_position(
+            n_ms=VT_MS, ct_n_ms=CT_MS, init_pos_ecef=usr))
+    finally:
+        tvt.vt_scan = first_scan.scan
     bank_launches = cb.correlator_bank.launches
     if tc.track_chunk.launches != 0:
         raise AssertionError("vt_position tracked CT again instead of "
                              "loading its artifact")
+    graph_res = vt_graph_vs_eager(first_scan)
     if with_profile:
-        profile_vt(rx, usr)
+        profile_vt(first_scan)
+    del first_scan
 
     missing = sorted(set(PRNS) - set(int(p) for p in acq.sv))
     if missing:
@@ -1005,6 +1208,7 @@ def phase_main_path(dev: torch.device, workdir: str,
         vt_max_err_m=float(np.max(vt_err)),
         vt_min_valid_channels=int(n_valid.min()),
         vt_ms_per_step=stages["vt_ekf_s"] / VT_MS * 1e3,
+        vt_eager_ms_per_step=graph_res["eager_ms_per_step"],
         correlator_bank_launches=bank_launches,
         eph_tracking_capture_samples_per_s=EPH_MS * S
         / stages["eph_tracking_s"],

@@ -287,13 +287,18 @@ struct SumWork {
 // are stored at r + (r >> 3): lanes of a warp are 8 (or 4) samples apart, and
 // the padding spreads them over the banks.
 constexpr int kPad = 64;
+// The padded table, one entry more so that it is whole 16-byte pieces:
+// entry i is chip (i - kPad) mod 1023.
+constexpr int kTableLen = kPad + kCodeLen + kPad + 1;
+// The tap words: kMaxTaps Q32 offsets (zeros past the last tap), then the
+// least and the largest of them.
+constexpr int kTapWords = kMaxTaps + 2;
 
 template <int ROWS>
-struct CorrTables {
-  double chips[kPad + kCodeLen + kPad];  // this channel's code, as float64
-  long long tap[kMaxTaps];               // Q32 tap offsets
-  long long tap_lo, tap_hi;              // the least and the largest of them
-  float2 v[128 + 16];                    // e^{i theta_r}: (cos, sin)
+struct __align__(16) CorrTables {
+  double chips[kTableLen];       // this channel's code, as float64
+  long long tap[kTapWords];      // the tap words
+  float2 v[128 + 16];            // e^{i theta_r}: (cos, sin)
   float2 u[2][ROWS];  // e^{i theta_q} of a tile's rows, two tiles
 };
 
@@ -397,7 +402,7 @@ struct CorrWork {
 #pragma unroll
       for (int t_ = 0; t_ < T; ++t_) tap_r[t_] = tb.tap[t_];
     }
-    const long long tap_lo = tb.tap_lo, tap_hi = tb.tap_hi;
+    const long long tap_lo = tb.tap[kMaxTaps], tap_hi = tb.tap[kMaxTaps + 1];
     const long long span = (long long)(G - 1) * step_fp;
     const int g_hi = (hi - k0t + G - 1) / G;
     for (int g = (lo - k0t) / G + threadIdx.x; g < g_hi; g += blockDim.x) {
@@ -419,12 +424,15 @@ struct CorrWork {
 
 // A CTA's tables: the channel's code and the taps (once per channel), the
 // r-phasors (once per block).  The caller's next barrier publishes them.
+// load_code makes the code table from the float32 chips, which a kernel that
+// runs a whole chunk in one launch does once; fetch_tables copies tables
+// that were made once per track (the banks, which are launched per block).
 template <int ROWS>
 __device__ __forceinline__ void load_code(const float* __restrict__ chips,
                                           const long long* __restrict__ tap_fp,
                                           int ch, int ntaps) {
   CorrTables<ROWS>& tb = corr_tables<ROWS>();
-  for (int i = threadIdx.x; i < kCodeLen + 2 * kPad; i += blockDim.x)
+  for (int i = threadIdx.x; i < kTableLen; i += blockDim.x)
     tb.chips[i] = (double)chips[(long long)ch * kCodeLen +
                                 floor_mod_code(i - kPad)];
   if (threadIdx.x < ntaps) tb.tap[threadIdx.x] = tap_fp[threadIdx.x];
@@ -434,8 +442,28 @@ __device__ __forceinline__ void load_code(const float* __restrict__ chips,
       lo = min(lo, tap_fp[t_]);
       hi = max(hi, tap_fp[t_]);
     }
-    tb.tap_lo = lo;
-    tb.tap_hi = hi;
+    tb.tap[kMaxTaps] = lo;
+    tb.tap[kMaxTaps + 1] = hi;
+  }
+}
+
+// The same tables from device memory, where they were made once: `code` is
+// this channel's kTableLen float64 entries, `taps` the kTapWords tap words,
+// both on 16-byte addresses.  Started as 16-byte asynchronous copies that
+// join the calling thread's open cp.async group (the first tile's), so the
+// wait for that tile is the wait for the tables.  Every thread calls it.
+template <int ROWS>
+__device__ __forceinline__ void fetch_tables(
+    const double* __restrict__ code, const long long* __restrict__ taps) {
+  CorrTables<ROWS>& tb = corr_tables<ROWS>();
+  constexpr int kCodePieces = kTableLen / 2, kTapPieces = kTapWords / 2;
+  static_assert(kTableLen % 2 == 0 && kTapWords % 2 == 0, "16-byte pieces");
+  for (int c = threadIdx.x; c < kCodePieces + kTapPieces; c += blockDim.x) {
+    if (c < kCodePieces)
+      cp_async16(&tb.chips[2 * c], code + 2 * c);
+    else
+      cp_async16(&tb.tap[2 * (c - kCodePieces)],
+                 taps + 2 * (c - kCodePieces));
   }
 }
 

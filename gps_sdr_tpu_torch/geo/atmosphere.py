@@ -10,6 +10,7 @@ cycle, Black & Eisner mapping).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -78,11 +79,17 @@ _UNB3_K1 = 0.000077604
 _UNB3_K2 = 0.382
 
 
+@functools.lru_cache(maxsize=None)
+def _unb3_tables(device: torch.device):
+    """The two look-up tables on `device`, copied there once: a step that
+    is captured into a CUDA graph may not copy from the host."""
+    return f64(_UNB3_AVG, device), f64(_UNB3_AMP, device)
+
+
 def _unb3_surface(doy: torch.Tensor, lat_deg: torch.Tensor,
                   alt_m: torch.Tensor):
     """Interpolated UNB3 met values at altitude (Get_UNB3_Model.m)."""
-    avg_t = f64(_UNB3_AVG, lat_deg.device)
-    amp_t = f64(_UNB3_AMP, lat_deg.device)
+    avg_t, amp_t = _unb3_tables(lat_deg.device)
     doy = torch.where(lat_deg < 0.0, doy - 211.0, doy - 28.0)
     cosphs = torch.cos(doy * 2.0 * math.pi / 365.25)
     lat = torch.abs(lat_deg)

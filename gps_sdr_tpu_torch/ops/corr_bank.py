@@ -22,16 +22,28 @@ Two implementations of one function:
   use into `build/` and bound through a plain C entry point with ctypes.  It
   replaces the TPU kernel
   `gps_sdr_tpu/ops/pallas_track.py::correlator_bank_hbm`.  One launch moves
-  about 116 KB per channel at 58 MHz, so its bound is the launch itself;
-  the grid is (channel, part) so that a handful of channels still fill the
-  card, each CTA staging its part through shared memory with 16-byte
-  asynchronous copies, with float64 partial sums added in a fixed order (no
-  floating-point atomics).
+  about 116 KB per channel at 58 MHz, so its bound is the launch itself, and
+  the design is about what a launch costs the card and the host.  One
+  kernel launch gives the result: the grid is (channel, part), each CTA
+  stages its part through shared memory with 16-byte asynchronous copies
+  and writes its float64 tap sums into its own slot, and the part of a
+  channel that arrives last (an integer ticket per channel) adds the slots
+  in part order: no second kernel and no floating-point atomics, so results
+  repeat run to run.  The channel's code table as float64, padded and
+  wrapped, and the tap words are made once (`bank_tables`), not by every CTA
+  of every launch; a CTA copies them in with its first tile.  `BankPlan` is
+  the prepared launch: made once per chunk from what does not change from
+  block to block, it checks its inputs once, owns the result and scratch
+  buffers and the argument block of the C entry point, and a call passes
+  only the six per-block words.  A thread-block cluster per channel, its
+  ranks' sums added through distributed shared memory, gave the same bits
+  and was slower (PERF.md); `kernel_ablation.py` builds it again as a
+  variant.
 
 `correlator_bank_windows` is the same bank over windows the caller has
 already cut out of the chunk (`WindowCutter`), one (blk, 2) window per
 channel: what the per-block tracker (`tracking.track_scan`) runs for every
-coherent block longer than 2 ms.  Its kernel is the second entry point of
+coherent block longer than 2 ms, through its prepared form `WindowsPlan`.  Its kernel is the second entry point of
 `csrc/corr_bank.cu` and replaces the TPU kernel
 `gps_sdr_tpu/ops/pallas_correlator.py::correlator_bank`; its plain version,
 `correlator_bank_windows_reference`, is `correlate_blocks` with the
@@ -39,7 +51,7 @@ windows as the chunk.  Both entries share one device function and one
 plain function, so on the same samples they agree bit for bit.  A 10 ms
 block at 58 MHz is 1.16 MB per channel, so this entry is bound by bytes;
 `default_split` gives a channel one CTA on each of its share of the SMs,
-fewer where a block is too short to be worth that many set-ups.
+fewer where a block is too short to be worth that many CTAs.
 
 Each wrapper takes the plain version for a tensor on the CPU and the
 kernel for a CUDA tensor; there is no fallback between them.  Nothing is
@@ -52,7 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,7 +75,35 @@ from gps_sdr_tpu_torch.ops.track_chunk import (MAX_TAPS, Q32, BlockGrid,
                                                _wrap32, correlate_blocks)
 
 SM_COUNT = 132        # H100
-MIN_PART_ROWS = 24    # a part is worth its set-up from 24 rows of 128 samples
+MIN_PART_ROWS = 12    # a part is worth its launch from 12 rows of 128 samples
+CODE_PAD = 64         # chips of the code repeated on either side of the table
+TABLE_LEN = CODE_PAD + CODE_LENGTH + CODE_PAD + 1   # whole 16-byte pieces
+
+
+class BankTables(NamedTuple):
+    """What the kernels need of a track that is made once, not per block:
+    its codes and taps as they read them."""
+
+    code: torch.Tensor    # (N, TABLE_LEN) float64: entry i is chip
+    #                       (i − CODE_PAD) mod 1023, so an index kept along a
+    #                       run of samples needs no wrap inside the pad
+    taps: torch.Tensor    # (MAX_TAPS + 2,) int64: the Q32 tap offsets, zeros
+    #                       past the last, then the least and the largest
+    ntaps: int
+
+
+def bank_tables(chips: torch.Tensor, tap_fp: torch.Tensor) -> BankTables:
+    """The tables of `chips` (N, 1023) float32 and `tap_fp` (T,) int64 on
+    their device: once per track, or per chunk, not per block."""
+    idx = torch.remainder(
+        torch.arange(TABLE_LEN, device=chips.device) - CODE_PAD, CODE_LENGTH)
+    taps = torch.zeros(MAX_TAPS + 2, dtype=torch.int64, device=tap_fp.device)
+    ntaps = tap_fp.shape[0]
+    taps[:ntaps] = tap_fp
+    taps[MAX_TAPS] = tap_fp.min()
+    taps[MAX_TAPS + 1] = tap_fp.max()
+    return BankTables(chips[:, idx].to(torch.float64).contiguous(), taps,
+                      ntaps)
 
 
 def tap_offsets_fp(taps: Sequence[float], device) -> torch.Tensor:
@@ -78,10 +118,9 @@ def new_fault(device) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
-def _check_inputs(raw, words, chips, tap_fp, blk, fault) -> None:
-    """`words`: the per-channel (N,) tensors by name, int64 except
+def _check_inputs(raw, words, n, chips, tap_fp, blk, fault) -> None:
+    """`words`: the per-channel (n,) tensors by name, int64 except
     `rem_chip` and `code_freq` (float64)."""
-    n = words["num"].shape[0]
     if n == 0:
         raise ValueError("no channels to correlate")
     if chips.shape != (n, CODE_LENGTH) or chips.dtype != torch.float32:
@@ -234,24 +273,27 @@ def correlator_bank_windows_reference(
 # ---------------------------------------------------------------- build
 
 
+class _LaunchArgs(ctypes.Structure):
+    """`CorrBankArgs` of csrc/corr_bank.cu, field for field."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in
+                ("raw", "code", "taps", "corr", "partial", "ticket",
+                 "fault")] \
+        + [("n_raw", ctypes.c_longlong), ("fs", ctypes.c_double)] \
+        + [(name, ctypes.c_int) for name in
+           ("raw_int16", "windows", "n_ch", "ntaps", "n_split", "blk",
+            "remove_dc", "threads", "device")]
+
+
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     path, _, _ = _build.build_library("corr_bank")
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.corr_bank_launch.argtypes = [
-        p, i, ctypes.c_longlong,              # raw, int16?, n_raw
-        p, p, p, p, p, p, p, p,               # chips, tap_fp, 6 per-channel
-        p, p, p,                              # corr, partial, fault
-        i, i, i, i, i, ctypes.c_double, p]    # n_ch … remove_dc, fs, stream
+    lib.corr_bank_launch.argtypes = [ctypes.POINTER(_LaunchArgs),
+                                     ctypes.POINTER(p), p]
     lib.corr_bank_launch.restype = i
-    lib.corr_bank_windows_launch.argtypes = [
-        p, i,                                 # win, int16?
-        p, p, p, p, p, p, p,                  # chips, tap_fp, 5 per-channel
-        p, p, p,                              # corr, partial, fault
-        i, i, i, i, i, ctypes.c_double, p]    # n_ch … remove_dc, fs, stream
-    lib.corr_bank_windows_launch.restype = i
     lib.corr_bank_empty_launch.argtypes = [p]
     lib.corr_bank_empty_launch.restype = i
     lib.corr_bank_error_string.argtypes = [i]
@@ -261,14 +303,35 @@ def load_library() -> ctypes.CDLL:
 
 def default_split(n_ch: int, blk: int) -> int:
     """CTAs per channel for a block window of `blk` samples: one wave with
-    one CTA an SM (every CTA makes the channel's code and phasor tables, so
-    a second CTA on an SM costs more set-up than its warps hide, and a wave
+    one CTA an SM (a second CTA on an SM shares its dispatch slots, and a wave
     that does not fill evenly waits for its fullest SM), cut down for a
     short block until a part is `MIN_PART_ROWS` rows long (below that the
-    launch, the set-up and the second kernel are the floor, and more parts
-    only add to them).  Both limits are what measured best on the card at 1
-    and 10 ms, 3 and 25 taps, DC removal on and off."""
+    launch and what closes it are the floor, and more parts only add to
+    them: parts of 14 rows still measured better than parts of 28, parts
+    of 7 no better than 14).  Both limits are what measured best on the
+    card at 1 and 10 ms, 3 to 29 taps, 2 to 12 channels, DC removal on and
+    off."""
     return max(1, min(SM_COUNT // n_ch, blk // 128 // MIN_PART_ROWS))
+
+
+def threads_for(ntaps: int) -> int:
+    """The most threads a correlating CTA of `ntaps` taps may have: that of
+    the instance csrc/corr_bank.cu launches for it (`threads_for` of
+    csrc/nco_common.cuh).  Only the E/P/L instance, compiled for 3 taps,
+    leaves room for 16 warps; every other tap count runs an instance built
+    for 8 (the 25- and 29-tap ones, or the one that reads its tap count at
+    run time)."""
+    return 512 if ntaps == 3 else 256
+
+
+def default_threads(ntaps: int, n_split: int, blk: int) -> int:
+    """Threads of a correlating CTA: `threads_for` where a part holds at
+    least two runs of 8 samples for each of them (a 10 ms block), else 256.
+    A part of a 1 ms block is about one run for each of 512 threads; with
+    half the warps the barriers and the sum over warps are shorter, which
+    measured best there (and 128 no better)."""
+    runs = -(-blk // n_split) // 8
+    return threads_for(ntaps) if runs >= 2 * threads_for(ntaps) else 256
 
 
 def part_share(num: int, n_split: int, part: int) -> Tuple[int, int]:
@@ -281,47 +344,157 @@ def part_share(num: int, n_split: int, part: int) -> Tuple[int, int]:
     return min(num, lo), min(num, lo + rows_per * 128)
 
 
-def _launch(wrapper, raw, ptr_off, rem_chip, code_freq, phase_fp, carr_fp,
-            num, chips, tap_fp, fs, blk, remove_dc, fault, n_split):
-    """Launch the fetching entry (`ptr_off` given) or the windows entry
-    (`ptr_off` None, `raw` the windows) and count it on `wrapper`."""
-    dev = raw.device
-    if not (raw.is_contiguous() and chips.is_contiguous()):
-        raise ValueError("the samples and chips must be contiguous")
-    # the (N,) words may be views (a column of a packed state): no copy
-    # when they are contiguous already
-    tap_fp, rem_chip, code_freq, phase_fp, carr_fp, num = (
-        t.contiguous() for t in (tap_fp, rem_chip, code_freq, phase_fp,
-                                 carr_fp, num))
-    lib = load_library()
-    n, ntaps = num.shape[0], tap_fp.shape[0]
-    if n_split is None:
-        n_split = default_split(n, blk)
-    corr = torch.empty((n, ntaps, 2), dtype=torch.float32, device=dev)
-    # per part: the tap sums, then its integer sums for DC removal
-    partial = torch.empty((n, n_split, ntaps + 1, 2), dtype=torch.float64,
-                          device=dev)
-    words = (rem_chip.data_ptr(), code_freq.data_ptr(), phase_fp.data_ptr(),
-             carr_fp.data_ptr(), num.data_ptr(), corr.data_ptr(),
-             partial.data_ptr(), fault.data_ptr(), n, ntaps, int(n_split),
-             int(blk), int(remove_dc), float(fs))
-    is16 = int(raw.dtype == torch.int16)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if ptr_off is None:
-            rc = lib.corr_bank_windows_launch(
-                raw.data_ptr(), is16, chips.data_ptr(), tap_fp.data_ptr(),
-                *words, stream)
+_WORDS = ("ptr_off", "rem_chip", "code_freq", "phase_fp", "carr_fp", "num")
+_WORD_DTYPE = dict(zip(_WORDS, (torch.int64, torch.float64, torch.float64,
+                                torch.int64, torch.int64, torch.int64)))
+
+
+class _KernelCall:
+    """The buffers and the argument block of the C entry point, and the
+    launch: of the fetching entry for one chunk (`raw`), or of the windows
+    entry (`raw` None) for the windows each launch is given.  The scratch is
+    the call's own: launches of one call follow each other on a stream, two
+    calls may run side by side."""
+
+    def __init__(self, raw, tables, fs, blk, remove_dc, fault, n_split):
+        dev = fault.device
+        n, ntaps = tables.code.shape[0], tables.ntaps
+        if raw is not None and not raw.is_contiguous():
+            raise ValueError("the chunk must be contiguous")
+        if n_split is None:
+            n_split = default_split(n, blk)
+        self.lib = load_library()
+        self.device = dev
+        self.keep = (raw, tables, fault)    # what the pointers point at
+        self.captured = 0    # launches recorded into CUDA graphs, not run
+        self.corr_shape = (n, ntaps, 2)
+        # the fetching entry's result is the call's own buffer
+        self.corr = None if raw is None else torch.empty(
+            self.corr_shape, dtype=torch.float32, device=dev)
+        # one zeroed buffer: per part the tap sums, then its integer sums
+        # for DC removal; behind them the channels' int32 tickets, how many
+        # parts have arrived, which every launch puts back to zero
+        slots = n * n_split * (ntaps + 1) * 2
+        self.scratch = torch.zeros(slots + (n + 1) // 2, dtype=torch.float64,
+                                   device=dev)
+        self.partial = self.scratch[:slots].view(n, n_split, ntaps + 1, 2)
+        self.args = _LaunchArgs(
+            raw=None if raw is None else raw.data_ptr(),
+            code=tables.code.data_ptr(), taps=tables.taps.data_ptr(),
+            corr=None if raw is None else self.corr.data_ptr(),
+            partial=self.scratch.data_ptr(),
+            ticket=self.scratch.data_ptr() + 8 * slots,
+            fault=fault.data_ptr(),
+            n_raw=n * blk if raw is None else raw.shape[0], fs=float(fs),
+            raw_int16=int(raw is not None and raw.dtype == torch.int16),
+            windows=int(raw is None),
+            n_ch=n, ntaps=ntaps, n_split=int(n_split), blk=int(blk),
+            remove_dc=int(remove_dc),
+            threads=default_threads(ntaps, int(n_split), int(blk)),
+            device=dev.index or 0)
+        self.args_ref = ctypes.byref(self.args)
+        self.words = (ctypes.c_void_p * 6)()
+
+    def launch(self, wrapper, words, win=None) -> torch.Tensor:
+        """One launch on the current stream; `words` in the order of
+        `_WORDS` (ptr_off None for the windows entry, whose windows are
+        `win` and whose result is a new tensor).  Counted on `wrapper` when
+        the kernel runs; on a stream that is being captured into a CUDA
+        graph nothing runs, and the launch is counted on `captured` for
+        whoever replays the graph."""
+        corr = self.corr
+        if win is not None:
+            corr = torch.empty(self.corr_shape, dtype=torch.float32,
+                               device=self.device)
+            self.args.raw, self.args.corr = win.data_ptr(), corr.data_ptr()
+            self.args.raw_int16 = int(win.dtype == torch.int16)
+        slots = self.words
+        for i, t in enumerate(words):
+            slots[i] = None if t is None else t.data_ptr()
+        rc = self.lib.corr_bank_launch(
+            self.args_ref, slots,
+            torch.cuda.current_stream(self.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{wrapper.__name__}: kernel launch failed: "
+                + self.lib.corr_bank_error_string(rc).decode())
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
         else:
-            ptr_off = ptr_off.contiguous()
-            rc = lib.corr_bank_launch(
-                raw.data_ptr(), is16, raw.shape[0], chips.data_ptr(),
-                tap_fp.data_ptr(), ptr_off.data_ptr(), *words, stream)
-    if rc != 0:
-        raise RuntimeError(f"{wrapper.__name__}: kernel launch failed: "
-                           + lib.corr_bank_error_string(rc).decode())
-    wrapper.launches += 1
-    return corr, fault
+            wrapper.launches += 1
+        return corr
+
+
+def _check_words(words, names, shape, device) -> None:
+    """The per-block words of a prepared launch, at every call."""
+    for t, name in zip(words, names):
+        dtype = _WORD_DTYPE[name]
+        if t.dtype != dtype or t.shape != shape or t.device != device \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous {tuple(shape)} {dtype} on "
+                f"{device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+class BankPlan:
+    """A prepared `correlator_bank`: everything that stays the same from
+    one block of a chunk to the next is checked, allocated and laid out for
+    the kernel once, and a call takes the six per-block words.
+
+        plan = BankPlan(raw, chips, tap_fp, fs, blk, remove_dc, fault)
+        corr = plan(ptr_off, rem_chip, code_freq, phase_fp, carr_fp, num)
+
+    On a CUDA device `corr` (N, T, 2) float32 is the plan's own buffer,
+    overwritten by the next call: copy what is to be kept.  On the CPU a
+    call runs the plain version.  The words must be contiguous (N,) tensors
+    of their dtypes on the plan's device; a call checks only that.  It
+    launches on the current stream and counts on
+    `correlator_bank.launches`.  It can be captured into a CUDA graph:
+    every pointer but the words' is fixed.  A captured call launches
+    nothing and is counted on `captured` instead; whoever replays the graph
+    adds what it holds to `correlator_bank.launches`.  `n_split` is for
+    measurements; the default is what measured best.
+    """
+
+    def __init__(self, raw: torch.Tensor, chips: torch.Tensor,
+                 tap_fp: torch.Tensor, fs: float, blk: int,
+                 remove_dc: bool = False,
+                 fault: Optional[torch.Tensor] = None,
+                 grid: Optional[BlockGrid] = None,
+                 n_split: Optional[int] = None):
+        _check_raw(raw)
+        dev = raw.device
+        if fault is None:
+            fault = new_fault(dev)
+        _check_inputs(raw, {}, chips.shape[0], chips, tap_fp, blk, fault)
+        self.fault, self.device = fault, dev
+        self.shape = torch.Size((chips.shape[0],))
+        if dev.type == "cpu":
+            if grid is None:
+                grid = BlockGrid.make(blk, dev)
+            self._plain = (chips, tap_fp, fs, blk, remove_dc, fault, grid)
+            self._raw = raw
+        elif dev.type == "cuda":
+            self._call = _KernelCall(
+                raw, bank_tables(chips.contiguous(), tap_fp), fs, blk,
+                remove_dc, fault, n_split)
+        else:
+            raise ValueError(f"correlator_bank: no kernel for {dev}")
+
+    @property
+    def captured(self) -> int:
+        """Calls recorded into CUDA graphs so far (0 on the CPU)."""
+        return self._call.captured if self.device.type == "cuda" else 0
+
+    def __call__(self, ptr_off: torch.Tensor, rem_chip: torch.Tensor,
+                 code_freq: torch.Tensor, phase_fp: torch.Tensor,
+                 carr_fp: torch.Tensor, num: torch.Tensor) -> torch.Tensor:
+        words = (ptr_off, rem_chip, code_freq, phase_fp, carr_fp, num)
+        _check_words(words, _WORDS, self.shape, self.device)
+        if self.device.type == "cpu":
+            return correlator_bank_reference(self._raw, *words,
+                                             *self._plain)[0]
+        return self._call.launch(correlator_bank, words)
 
 
 def correlator_bank(raw: torch.Tensor, ptr_off: torch.Tensor,
@@ -340,26 +513,85 @@ def correlator_bank(raw: torch.Tensor, ptr_off: torch.Tensor,
     the plain version (`grid` saves it rebuilding its index tensors); a
     CUDA `raw` launches the kernel (`n_split` CTAs per channel, default
     `default_split`) or raises.  Neither synchronises with the host: read
-    `fault` back with `raise_on_fault` when the results are.
+    `fault` back with `raise_on_fault` when the results are.  This is the
+    checked entry that makes its tables and buffers on every call; a caller
+    with many blocks of one chunk keeps a `BankPlan`.
     """
-    if fault is None:
-        fault = new_fault(raw.device)
-    _check_raw(raw)
-    _check_inputs(raw, dict(ptr_off=ptr_off, num=num, phase_fp=phase_fp,
-                            carr_fp=carr_fp, rem_chip=rem_chip,
-                            code_freq=code_freq), chips, tap_fp, blk, fault)
-    if raw.device.type == "cpu":
-        return correlator_bank_reference(
-            raw, ptr_off, rem_chip, code_freq, phase_fp, carr_fp, num, chips,
-            tap_fp, fs, blk, remove_dc, fault, grid)
-    if raw.device.type != "cuda":
-        raise ValueError(f"correlator_bank: no kernel for {raw.device}")
-    return _launch(correlator_bank, raw, ptr_off, rem_chip, code_freq,
-                   phase_fp, carr_fp, num, chips, tap_fp, fs, blk, remove_dc,
-                   fault, n_split)
+    plan = BankPlan(raw, chips, tap_fp, fs, blk, remove_dc, fault, grid,
+                    n_split)
+    # the (N,) words may be views (a column of a packed state): no copy
+    # when they are contiguous already
+    corr = plan(*(t.contiguous() for t in (ptr_off, rem_chip, code_freq,
+                                           phase_fp, carr_fp, num)))
+    return corr, plan.fault
 
 
 correlator_bank.launches = 0   # kernel launches (the CUDA path only)
+
+
+class WindowsPlan:
+    """A prepared `correlator_bank_windows` for many blocks of one window
+    length: what stays the same from block to block is checked once, the
+    tables and the scratch are made once, and a call takes the windows and
+    the five per-block words.
+
+        plan = WindowsPlan(chips, tap_fp, fs, blk, remove_dc, fault)
+        corr = plan(win, rem_chip, code_freq, phase_fp, carr_fp, num)
+
+    `corr` (N, T, 2) float32 is a new tensor at every call.  `win` must be
+    a contiguous (N, blk, 2) int8/int16 tensor and the words contiguous
+    (N,) tensors of their dtypes, all on the device of `chips`; a call
+    checks only that.  On the CPU a call runs the plain version.  A call
+    launches on the current stream and counts on
+    `correlator_bank_windows.launches` (a captured call on `captured`, as
+    `BankPlan`); calls of one plan follow each other on one stream.
+    """
+
+    def __init__(self, chips: torch.Tensor, tap_fp: torch.Tensor, fs: float,
+                 blk: int, remove_dc: bool = False,
+                 fault: Optional[torch.Tensor] = None,
+                 grid: Optional[BlockGrid] = None,
+                 n_split: Optional[int] = None):
+        dev = chips.device
+        if fault is None:
+            fault = new_fault(dev)
+        n = chips.shape[0]
+        _check_inputs(chips, {}, n, chips, tap_fp, blk, fault)
+        self.fault, self.device = fault, dev
+        self.shape, self.win_shape = torch.Size((n,)), (n, blk, 2)
+        if dev.type == "cpu":
+            if grid is None:
+                grid = BlockGrid.make(blk, dev)
+            self._plain = (chips, tap_fp, fs, remove_dc, fault, grid)
+        elif dev.type == "cuda":
+            self._call = _KernelCall(
+                None, bank_tables(chips.contiguous(), tap_fp), fs, blk,
+                remove_dc, fault, n_split)
+        else:
+            raise ValueError(f"correlator_bank_windows: no kernel for {dev}")
+
+    @property
+    def captured(self) -> int:
+        """Calls recorded into CUDA graphs so far (0 on the CPU)."""
+        return self._call.captured if self.device.type == "cuda" else 0
+
+    def __call__(self, win: torch.Tensor, rem_chip: torch.Tensor,
+                 code_freq: torch.Tensor, phase_fp: torch.Tensor,
+                 carr_fp: torch.Tensor, num: torch.Tensor) -> torch.Tensor:
+        if win.dtype not in (torch.int8, torch.int16) \
+                or win.shape != self.win_shape or win.device != self.device \
+                or not win.is_contiguous():
+            raise ValueError(
+                f"win must be a contiguous {self.win_shape} int8/int16 IQ "
+                f"tensor on {self.device}, got {tuple(win.shape)} "
+                f"{win.dtype} on {win.device}")
+        words = (rem_chip, code_freq, phase_fp, carr_fp, num)
+        _check_words(words, _WORDS[1:], self.shape, self.device)
+        if self.device.type == "cpu":
+            return correlator_bank_windows_reference(win, *words,
+                                                     *self._plain)[0]
+        return self._call.launch(correlator_bank_windows, (None, *words),
+                                 win)
 
 
 def correlator_bank_windows(
@@ -373,7 +605,9 @@ def correlator_bank_windows(
 
     Arguments and result as `correlator_bank_windows_reference`.  A CPU
     `win` runs the plain version; a CUDA `win` launches the kernel or
-    raises.  Neither synchronises with the host.
+    raises.  Neither synchronises with the host.  This is the checked
+    entry that makes its tables and scratch on every call; a caller with
+    many blocks keeps a `WindowsPlan`.
     """
     if fault is None:
         fault = new_fault(win.device)
@@ -381,23 +615,17 @@ def correlator_bank_windows(
             or win.shape[2] != 2:
         raise ValueError(f"win must be (N, blk, 2) int8/int16 IQ, got "
                          f"{tuple(win.shape)} {win.dtype}")
-    blk = win.shape[1]
-    _check_inputs(win, dict(num=num, phase_fp=phase_fp, carr_fp=carr_fp,
-                            rem_chip=rem_chip, code_freq=code_freq), chips,
-                  tap_fp, blk, fault)
+    words = dict(num=num, phase_fp=phase_fp, carr_fp=carr_fp,
+                 rem_chip=rem_chip, code_freq=code_freq)
+    _check_inputs(win, words, num.shape[0], chips, tap_fp, win.shape[1],
+                  fault)
     if win.shape[0] != num.shape[0]:
         raise ValueError(f"win holds {win.shape[0]} windows for "
                          f"{num.shape[0]} channels")
-    if win.device.type == "cpu":
-        return correlator_bank_windows_reference(
-            win, rem_chip, code_freq, phase_fp, carr_fp, num, chips, tap_fp,
-            fs, remove_dc, fault, grid)
-    if win.device.type != "cuda":
-        raise ValueError(f"correlator_bank_windows: no kernel for "
-                         f"{win.device}")
-    return _launch(correlator_bank_windows, win, None, rem_chip, code_freq,
-                   phase_fp, carr_fp, num, chips, tap_fp, fs, blk, remove_dc,
-                   fault, n_split)
+    plan = WindowsPlan(chips, tap_fp, fs, win.shape[1], remove_dc, fault,
+                       grid, n_split)
+    return plan(win.contiguous(), *(t.contiguous() for t in (
+        rem_chip, code_freq, phase_fp, carr_fp, num))), fault
 
 
 correlator_bank_windows.launches = 0   # kernel launches (CUDA path only)

@@ -10,7 +10,7 @@ the same arithmetic per channel.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,16 +45,21 @@ def dll_discriminator(e_i: torch.Tensor, e_q: torch.Tensor,
     return 0.5 * (e - l) / torch.clamp(e + l, min=1e-30)
 
 
-def pll_discriminator(p_i: torch.Tensor, p_q: torch.Tensor) -> torch.Tensor:
+def pll_discriminator(p_i: torch.Tensor, p_q: torch.Tensor,
+                      two_pi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Costas discriminator in cycles, atan(Q/I)/2π (trackingCT.m:146).
 
     `atan` of the ratio, not `atan2`: the Costas loop must not see the
     data-bit sign.  Evaluated in the correlators' dtype, returned as
     float64 (tracking.py:424-426).  2π is a device tensor so the division
     is a true one on every device (CUDA turns division by a host scalar
-    into a reciprocal multiply)."""
+    into a reciprocal multiply); a caller whose step is captured into a
+    CUDA graph makes it once and passes it (a capture may not copy from the
+    host)."""
     safe_i = torch.where(p_i == 0, torch.full_like(p_i, 1e-30), p_i)
-    two_pi = torch.tensor(2.0 * math.pi, dtype=p_i.dtype, device=p_i.device)
+    if two_pi is None:
+        two_pi = torch.tensor(2.0 * math.pi, dtype=p_i.dtype,
+                              device=p_i.device)
     return (torch.atan(p_q / safe_i) / two_pi).to(torch.float64)
 
 

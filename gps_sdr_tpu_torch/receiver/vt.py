@@ -13,8 +13,9 @@ corrections and the error-state EKF that couples all channels.  Per ms:
 4. predicted pseudorange (…:208-215): float64 chain at the group head,
    linearised float32 delta terms per step; iono/tropo every 100 ms
 5. vector loop closure: codeFreq = f0·(1 − ΔPr/(c·Δt)) (…:218-223)
-6. the correlator bank (`ops/corr_bank.correlator_bank`: the CUDA kernel on
-   the card, its plain version on the CPU), one call per ms
+6. the correlator bank (`ops/corr_bank.BankPlan`, a prepared
+   `correlator_bank`: the CUDA kernel on the card, its plain version on the
+   CPU), one call per ms
 7. scalar Costas PLL per channel (…:307-313)
 8. code discriminator → pseudorange-error measurement, carrier →
    pseudorange-rate measurement (…:316-321, 379-382)
@@ -22,12 +23,17 @@ corrections and the error-state EKF that couples all channels.  Per ms:
    float64 (…:388-442)
 10. adaptive measurement noise every `r_update_ms` (…:445-467)
 
-PyTorch's idiom: the step is a Python loop of small tensor operations on
-the state's device.  The step counter and its three cadences (atmosphere,
-C/N0 window, adaptive R) are known on the host, so they are plain Python
-branches; nothing inside the loop reads a tensor back.  Faults (a window
-that leaves the chunk, a code NCO that is not finite) raise a flag on the
-device that the host reads once per chunk, with the records.  The JAX
+PyTorch's idiom: the step is a chain of small tensor operations on the
+state's device that computes new values from the carry and then commits
+them into the carry's fixed tensors; the records are preallocated and
+written at a row index that lives on the device.  The step counter and its
+three cadences (atmosphere, C/N0 window, adaptive R) are known on the
+host, so they are plain Python branches that select which step runs;
+nothing inside the loop reads a tensor back.  On a CUDA device each such
+step is captured into a CUDA graph and replayed, the counterpart of the
+JAX package's `lax.scan` over one compiled step (`vt_scan`).  Faults (a
+window that leaves the chunk, a code NCO that is not finite) raise a flag
+on the device that the host reads once per chunk, with the records.  The JAX
 package lets a NaN block length through its clip into the int cast
 (`vt.py:325`); here that raises.
 
@@ -39,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,12 +58,13 @@ from gps_sdr_tpu_torch.geo.ephemeris import (MU_EARTH, Ephemeris,
                                              sv_pos_vel_clock)
 from gps_sdr_tpu_torch.io.ifdata import (ChunkPrefetcher, DeviceStager,
                                          IFSampleSource)
-from gps_sdr_tpu_torch.ops.corr_bank import (correlator_bank, new_fault,
-                                             raise_on_fault, tap_offsets_fp)
+from gps_sdr_tpu_torch.ops.corr_bank import (BankPlan, correlator_bank,
+                                             new_fault, raise_on_fault,
+                                             tap_offsets_fp)
 from gps_sdr_tpu_torch.ops.loops import (cn0_moment_estimator,
                                          loop_coefficients,
                                          pll_discriminator)
-from gps_sdr_tpu_torch.ops.track_chunk import BlockGrid, _wrap32
+from gps_sdr_tpu_torch.ops.track_chunk import _wrap32
 from gps_sdr_tpu_torch.tracking import Q32, TrackRecords, chip_tables
 from gps_sdr_tpu_torch.utils.device import resolve_device
 
@@ -158,109 +165,112 @@ class VTParams:
         return VTParams(**defaults)
 
 
-class _GroupCache(NamedTuple):
-    """Group-head geometry the steps of one Kepler group linearise around."""
-
-    tt0: torch.Tensor            # (N,) f64 transmit time at the head
-    clk_rate: torch.Tensor       # (N,) f64 SV clock rate [m/s]
-    pred_pr_head: torch.Tensor   # (N,) f64
-    a32: torch.Tensor            # (N, 3) f32 unit line of sight
-    est_pos_h: torch.Tensor      # (3,) f64
-    clk_bias_h: torch.Tensor     # () f64
-    H: torch.Tensor              # (2N, 8) f32 measurement matrix
-    vel0_32: torch.Tensor        # (N, 3) f32
-    acc0_32: torch.Tensor
-    clk_rate_32: torch.Tensor    # (N,) f32
-    pos0: torch.Tensor           # (N, 3) f64
+# Group-head geometry the steps of one Kepler group linearise around:
+# tt0 (N,) f64 transmit time at the head; clk_rate (N,) f64 SV clock rate
+# [m/s]; pred_pr_head (N,) f64; a32 (N, 3) f32 unit line of sight; est_pos_h
+# (3,) f64; clk_bias_h () f64; H (2N, 8) f32 measurement matrix; vel0_32,
+# acc0_32 (N, 3) f32; clk_rate_32 (N,) f32; pos0 (N, 3) f64.
+_GROUP_FIELDS = ("tt0", "clk_rate", "pred_pr_head", "a32", "est_pos_h",
+                 "clk_bias_h", "H", "vel0_32", "acc0_32", "clk_rate_32",
+                 "pos0")
+# what a refresh may renew in the carry
+_ATMOSPHERE_FIELDS = ("iono_m", "tropo_m", "el_rad", "az_rad")
 
 
-def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
-            chips: torch.Tensor, eph: Ephemeris, iono_alpha, iono_beta,
-            params: VTParams, n_steps: int, fs: float, blk: int, f_if: float,
-            fc: float, code_freq_basis: float, doy: int
-            ) -> Tuple[VTState, Dict[str, torch.Tensor]]:
-    """Run `n_steps` ms of vector tracking inside one raw chunk.
+class _VTChunk:
+    """One chunk of vector tracking: the constants, the carry `st`, the
+    group cache `g` and the record row `row`, and the two functions that
+    compute from them without changing them.
 
-    raw (L, 2) int8/int16 IQ on the state's device, `chunk_start` the
-    absolute sample of raw[0]; chips (N, 1023) float32.  Returns
-    (new state, records): records are (T, …) tensors on the device plus
-    `fault`, the (1,) int32 flag of `ops/corr_bank` that the caller reads
-    back (`raise_on_fault`) with the records.  Reads `state.step_count`
-    once on entry; nothing else crosses to the host.
+    `refresh_values(atmosphere)` gives the new group cache (and, with
+    `atmosphere`, the renewed corrections); `step_values(first, window,
+    r_update)` gives the carry's new values and the record row of one ms.
+    The three flags are what the host knows from the step count.  Neither
+    function writes into a tensor it was given and neither reads a tensor
+    back, so on a CUDA device both can be captured into a CUDA graph once
+    the caller commits their values into fixed tensors (`vt_scan`).
     """
-    dev = raw.device
-    f32, f64_, i64 = torch.float32, torch.float64, torch.int64
-    n = state.ptr.shape[0]
-    tap_fp = tap_offsets_fp(params.taps, dev)
-    grid = BlockGrid.make(blk, dev) if dev.type == "cpu" else None
-    tau1, tau2 = loop_coefficients(params.pll_bw_hz, params.pll_damping,
-                                   params.pll_gain)
-    dt = params.pdi_ms * 1e-3
-    n_chips = 1023 * params.pdi_ms
-    k_win = params.cn0_window
-    ie, ip, il = params.i_early, params.i_prompt, params.i_late
 
-    F = torch.eye(8, dtype=f64_, device=dev)
-    F[0, 3] = F[1, 4] = F[2, 5] = F[6, 7] = dt
-    F32 = F.to(f32)
-    Qm = torch.diag(torch.tensor(
-        [params.q_pos] * 3 + [params.q_vel] * 3
-        + [params.q_clk, params.q_clkd], dtype=f32, device=dev))
-    eye8 = torch.eye(8, dtype=f32, device=dev)
-    # divisors as device tensors: a true division on every device (CUDA
-    # turns division by a host scalar into a reciprocal multiply)
-    fs_t = torch.tensor(fs, dtype=f64_, device=dev)
-    c_light32 = torch.tensor(C_LIGHT, dtype=f32, device=dev)
-    bw_div = torch.tensor(4.0 * 293.0 * 1e-3, dtype=f32, device=dev)
-    r_masked = torch.tensor(params.r_masked, dtype=f32, device=dev)
-    zero32 = torch.zeros((), dtype=f32, device=dev)
-    alpha, beta = f64(iono_alpha, dev), f64(iono_beta, dev)
-    tgd_m = eph.tgd * C_LIGHT
-    fault = new_fault(dev)
+    def __init__(self, raw, chunk_start, state, chips, eph, iono_alpha,
+                 iono_beta, params, fs, blk, f_if, fc, code_freq_basis, doy):
+        dev = raw.device
+        f32, f64_, i64 = torch.float32, torch.float64, torch.int64
+        self.params, self.eph, self.dev = params, eph, dev
+        self.n = state.ptr.shape[0]
+        self.chunk_start, self.blk = chunk_start, blk
+        self.f_if, self.fc, self.code_freq_basis = f_if, fc, code_freq_basis
+        tau1, tau2 = loop_coefficients(params.pll_bw_hz, params.pll_damping,
+                                       params.pll_gain)
+        self.tau1, self.tau2 = tau1, tau2
+        self.dt = dt = params.pdi_ms * 1e-3
+        self.n_chips = 1023 * params.pdi_ms
 
-    # the carry: float32 covariance loop, int64 phase word, own zk buffer
-    st = state._asdict()
-    st["state_cov"] = state.state_cov.to(f32)
-    st["r_diag"] = state.r_diag.to(f32)
-    st["innov_sq_sum"] = state.innov_sq_sum.to(f32)
-    st["phase_fp"] = state.phase_fp.to(i64)
-    st["zk"] = state.zk.clone()
-    count = int(state.step_count)
+        F = torch.eye(8, dtype=f64_, device=dev)
+        F[0, 3] = F[1, 4] = F[2, 5] = F[6, 7] = dt
+        self.F, self.F32 = F, F.to(f32)
+        self.Qm = torch.diag(torch.tensor(
+            [params.q_pos] * 3 + [params.q_vel] * 3
+            + [params.q_clk, params.q_clkd], dtype=f32, device=dev))
+        self.eye8 = torch.eye(8, dtype=f32, device=dev)
+        # divisors as device tensors: a true division on every device (CUDA
+        # turns division by a host scalar into a reciprocal multiply)
+        self.fs_t = torch.tensor(fs, dtype=f64_, device=dev)
+        self.c_light32 = torch.tensor(C_LIGHT, dtype=f32, device=dev)
+        self.bw_div = torch.tensor(4.0 * 293.0 * 1e-3, dtype=f32, device=dev)
+        self.two_pi32 = torch.tensor(2.0 * math.pi, dtype=f32, device=dev)
+        self.r_masked = torch.tensor(params.r_masked, dtype=f32, device=dev)
+        self.zero32 = torch.zeros((), dtype=f32, device=dev)
+        self.alpha, self.beta = f64(iono_alpha, dev), f64(iono_beta, dev)
+        self.doy = f64(float(doy), dev)
+        self.tgd_m = eph.tgd * C_LIGHT
+        self.fault = new_fault(dev)
+        self.bank = BankPlan(raw, chips, tap_offsets_fp(params.taps, dev), fs,
+                             blk, params.remove_dc, self.fault)
 
-    def kepler_refresh(group_len: int) -> _GroupCache:
+        # the carry, in tensors of its own (the caller's state is not
+        # written): float32 covariance loop, int64 phase word
+        cast = dict(state_cov=f32, r_diag=f32, innov_sq_sum=f32,
+                    phase_fp=i64)
+        self.st = {k: v.to(cast.get(k, v.dtype), copy=True)
+                   for k, v in state._asdict().items()}
+        self.count0 = int(state.step_count)
+        self.g: Dict[str, torch.Tensor] = {}
+        # the record row of the next step, and with it the step count
+        self.row = torch.zeros(1, dtype=i64, device=dev)
+
+    def refresh_values(self, atmosphere: bool) -> Dict[str, torch.Tensor]:
         """Full-precision geometry once per group head: Kepler solve,
         Sagnac-rotated range, unit line of sight, measurement matrix and,
-        on its own cadence, the atmosphere.  The steps extrapolate SV
+        with `atmosphere`, the corrections.  The steps extrapolate SV
         motion along velocity + central-gravity acceleration and linearise
         the predicted pseudorange around this head (second-order range
         error over a 50 ms group ≈ 4e-4 m)."""
+        st, n, dev = self.st, self.n, self.dev
+        f32 = torch.float32
         est_pos_h = st["total_state"][:3]
         clk_bias_h = st["total_state"][6]
-        sv = sv_pos_vel_clock(eph, st["transmit_time"])
+        sv = sv_pos_vel_clock(self.eph, st["transmit_time"])
         pos0, vel0 = sv["pos"], sv["vel"]
         r3 = (pos0 * pos0).sum(dim=-1, keepdim=True) ** 1.5
         acc0 = -MU_EARTH * pos0 / r3
 
-        # the atmosphere refreshes at the group head whose steps contain a
-        # multiple of corr_update_ms: the cadence holds for any group
-        # length and chunking
-        corr = params.corr_update_ms
-        if ((corr - count % corr) % corr) < group_len:
+        new = {k: st[k] for k in _ATMOSPHERE_FIELDS}
+        if atmosphere:
             enu_r = xyz2enu(pos0, est_pos_h)
             el = torch.atan2(enu_r[..., 2],
                              torch.linalg.norm(enu_r[..., :2], dim=-1))
             az = torch.atan2(enu_r[..., 0], enu_r[..., 1])
             llh = xyz2llh(est_pos_h)
-            st["iono_m"] = klobuchar_delay(st["transmit_time"], pos0,
-                                           est_pos_h, alpha, beta)
-            st["tropo_m"] = torch.abs(tropo_unb3_delay(
-                doy, torch.rad2deg(llh[0]), llh[2], torch.rad2deg(el)))
-            st["el_rad"], st["az_rad"] = el, az
+            new["iono_m"] = klobuchar_delay(st["transmit_time"], pos0,
+                                            est_pos_h, self.alpha, self.beta)
+            new["tropo_m"] = torch.abs(tropo_unb3_delay(
+                self.doy, torch.rad2deg(llh[0]), llh[2], torch.rad2deg(el)))
+            new["el_rad"], new["az_rad"] = el, az
 
         # head pseudorange chain (…:208-215), float64, once per group
         r0 = torch.linalg.norm(pos0 - est_pos_h[None, :], dim=-1)
-        corr_m = (clk_bias_h + sv["clk_m"] - tgd_m - st["tropo_m"]
-                  - st["iono_m"])
+        corr_m = (clk_bias_h + sv["clk_m"] - self.tgd_m - new["tropo_m"]
+                  - new["iono_m"])
         svp_rot = earth_rotation_correction(pos0, r0 + corr_m)
         diff = svp_rot - est_pos_h[None, :]
         r1 = torch.linalg.norm(diff, dim=-1)
@@ -272,14 +282,24 @@ def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
         H[:n, 6] = 1.0
         H[n:, 3:6] = -a32
         H[n:, 7] = 1.0
-        return _GroupCache(
+        new.update(
             tt0=st["transmit_time"], clk_rate=sv["clk_rate_ms"],
             pred_pr_head=r1 + corr_m, a32=a32, est_pos_h=est_pos_h,
             clk_bias_h=clk_bias_h, H=H, vel0_32=vel0.to(f32),
             acc0_32=acc0.to(f32), clk_rate_32=sv["clk_rate_ms"].to(f32),
             pos0=pos0)
+        return new
 
-    def step(g: _GroupCache) -> Dict[str, torch.Tensor]:
+    def step_values(self, first: bool, window: bool, r_update: bool
+                    ) -> Tuple[Dict[str, torch.Tensor],
+                               Dict[str, torch.Tensor]]:
+        """One ms: (the carry's new values by field, the record row).
+        `first`: the step count is 0; `window`: this step closes a C/N0
+        window; `r_update`: it closes an adaptive-R interval."""
+        st, g, params, n = self.st, self.g, self.params, self.n
+        f32, f64_, i64 = torch.float32, torch.float64, torch.int64
+        fs_t, dt, n_chips = self.fs_t, self.dt, self.n_chips
+        ie, ip, il = params.i_early, params.i_prompt, params.i_late
         total0 = st["total_state"]
         est_pos = total0[:3]
         est_vel32 = total0[3:6].to(f32)
@@ -291,29 +311,29 @@ def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
         # drop the channel; a NaN passes the clip and the bank refuses it
         num = torch.clamp(
             torch.ceil((n_chips - rem) / (st["code_freq"] / fs_t)),
-            1.0, float(blk)).to(i64)
+            1.0, float(self.blk)).to(i64)
         tt = st["transmit_time"] + num.to(f64_) / fs_t
 
         # --- predicted pseudorange: head value + float32 delta terms ---
-        dt_e = tt - g.tt0                                 # f64 (N,)
+        dt_e = tt - g["tt0"]                              # f64 (N,)
         dte32 = dt_e.to(f32)[:, None]
-        sv_delta32 = g.vel0_32 * dte32 + (0.5 * dte32 * dte32) * g.acc0_32
-        sv_vel32 = g.vel0_32 + g.acc0_32 * dte32          # (N, 3) f32
-        d_range32 = ((g.a32 * sv_delta32).sum(dim=-1)
-                     - g.a32 @ (est_pos - g.est_pos_h).to(f32))
-        pred_pr = (g.pred_pr_head + (clk_bias - g.clk_bias_h)
-                   + g.clk_rate * dt_e + d_range32.to(f64_))
+        sv_delta32 = g["vel0_32"] * dte32 \
+            + (0.5 * dte32 * dte32) * g["acc0_32"]
+        sv_vel32 = g["vel0_32"] + g["acc0_32"] * dte32    # (N, 3) f32
+        d_range32 = ((g["a32"] * sv_delta32).sum(dim=-1)
+                     - g["a32"] @ (est_pos - g["est_pos_h"]).to(f32))
+        pred_pr = (g["pred_pr_head"] + (clk_bias - g["clk_bias_h"])
+                   + g["clk_rate"] * dt_e + d_range32.to(f64_))
         delta_pr = (pred_pr - st["predicted_pr_last"]) / dt
         # vector loop closure; the first step keeps its start value
-        code_freq = (st["code_freq"] if count == 0 else
-                     code_freq_basis * (1.0 - delta_pr / C_LIGHT))
+        code_freq = (st["code_freq"] if first else
+                     self.code_freq_basis * (1.0 - delta_pr / C_LIGHT))
 
         # --- correlate: `num` was sized with the previous code frequency,
         # the replica steps at the new one (…:164,227-232) ---
         carr_fp = _wrap32(torch.round(st["carr_freq"] / fs_t * Q32).to(i64))
-        corr, _ = correlator_bank(
-            raw, st["ptr"] - chunk_start, rem, code_freq, phase, carr_fp,
-            num, chips, tap_fp, fs, blk, params.remove_dc, fault, grid)
+        corr = self.bank(st["ptr"] - self.chunk_start, rem, code_freq, phase,
+                         carr_fp, num)
         rem_new = num.to(f64_) * (code_freq / fs_t) + rem - n_chips
         phase_new = _wrap32(phase + num * carr_fp)
         e_i, e_q = corr[:, ie, 0], corr[:, ie, 1]
@@ -321,19 +341,22 @@ def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
         l_i, l_q = corr[:, il, 0], corr[:, il, 1]
 
         # --- scalar Costas PLL (…:307-313): atan(Q/I), never atan2 ---
-        carr_err = pll_discriminator(p_i, p_q)
-        pll = st["pll_nco"] + (tau2 / tau1) * (carr_err - st["pll_last"]) \
-            + carr_err * (dt / tau1)
+        carr_err = pll_discriminator(p_i, p_q, self.two_pi32)
+        pll = st["pll_nco"] \
+            + (self.tau2 / self.tau1) * (carr_err - st["pll_last"]) \
+            + carr_err * (dt / self.tau1)
         carr_freq = st["carr_freq_basis"] + pll
 
         # --- measurement-validity gate: moment-method window over the
         # prompt powers, refreshed every K blocks; the gate is the
         # post-correlation SNR averaged over the last 5 windows, with a
         # 3 dB hysteresis so a dead channel does not flicker back in ---
-        st["zk"][:, count % k_win] = p_i.to(f64_) ** 2 + p_q.to(f64_) ** 2
+        col = torch.remainder(self.row + self.count0, params.cn0_window)
+        zk = st["zk"].index_copy(
+            1, col, (p_i.to(f64_) ** 2 + p_q.to(f64_) ** 2)[:, None])
         snr_hist, cn0, valid = st["snr_hist"], st["cn0"], st["valid"]
-        if (count + 1) % k_win == 0:
-            snr = cn0_moment_estimator(st["zk"], 1.0, signed=True)
+        if window:
+            snr = cn0_moment_estimator(zk, 1.0, signed=True)
             cn0 = snr - 10.0 * math.log10(dt)
             snr_hist = torch.cat([snr_hist[:, 1:], snr[:, None]], dim=1)
             if params.mask_snr_db > 0:
@@ -347,19 +370,19 @@ def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
         e = torch.sqrt(e_i * e_i + e_q * e_q)
         l = torch.sqrt(l_i * l_i + l_q * l_q)
         code_err = -0.5 * (e - l) / torch.clamp(e + l, min=1e-30)   # f32
-        z_pr = code_err * (c_light32 / code_freq.to(f32))
+        z_pr = code_err * (self.c_light32 / code_freq.to(f32))
         # carrier → pseudorange-rate measurement (see the sign note)
-        prr_meas = ((carr_freq - f_if) * (C_LIGHT / fc)).to(f32)
-        prr_pred = ((est_vel32[None, :] - sv_vel32) * g.a32).sum(dim=-1)
-        z_prr = prr_pred - prr_meas - clk_drift.to(f32) + g.clk_rate_32
+        prr_meas = ((carr_freq - self.f_if) * (C_LIGHT / self.fc)).to(f32)
+        prr_pred = ((est_vel32[None, :] - sv_vel32) * g["a32"]).sum(dim=-1)
+        z_prr = prr_pred - prr_meas - clk_drift.to(f32) + g["clk_rate_32"]
         z = torch.cat([z_pr, z_prr])                      # (2N,) f32
 
         # --- EKF predict + update (…:388-404) in float32; gated-out
         # channels have both rows deweighted by r_masked ---
-        H = g.H
+        H, F32 = g["H"], self.F32
         valid2 = torch.cat([valid, valid])
-        r_used = torch.where(valid2, st["r_diag"], r_masked)
-        P = F32 @ st["state_cov"] @ F32.T + Qm
+        r_used = torch.where(valid2, st["r_diag"], self.r_masked)
+        P = F32 @ st["state_cov"] @ F32.T + self.Qm
         PHt = P @ H.T
         S = H @ PHt + torch.diag(r_used)
         # Jacobi-scaled LU gain solve: the symmetric diagonal scaling
@@ -372,16 +395,16 @@ def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
         K = sol.T * dsc[None, :]
         err = K @ z
         # Joseph form stays positive semi-definite under float32 round-off
-        ikh = eye8 - K @ H
+        ikh = self.eye8 - K @ H
         P = ikh @ P @ ikh.T + (K * r_used[None, :]) @ K.T
         P = 0.5 * (P + P.T)
         total = total0 + err.to(f64_)
-        total_next = F @ total                # propagate (…:440-442)
+        total_next = self.F @ total           # propagate (…:440-442)
 
         # --- adaptive R (…:445-467); gated-out innovations are excluded
-        sq = st["innov_sq_sum"] + torch.where(valid2, z * z, zero32)
+        sq = st["innov_sq_sum"] + torch.where(valid2, z * z, self.zero32)
         r_diag = st["r_diag"]
-        if (count + 1) % params.r_update_ms == 0:
+        if r_update:
             m = sq / float(params.r_update_ms)
             r_diag = torch.cat([
                 torch.clamp(m[:n] * 10.0, params.r_min, params.r_pr_max),
@@ -389,17 +412,17 @@ def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
             sq = torch.zeros_like(sq)
 
         abs_sample = st["ptr"] + num
-        st.update(
+        new = dict(
             ptr=abs_sample, rem_chip=rem_new, code_freq=code_freq,
             carr_freq=carr_freq, phase_fp=phase_new, pll_nco=pll,
             pll_last=carr_err, transmit_time=tt, predicted_pr_last=pred_pr,
             total_state=total_next, state_cov=P, r_diag=r_diag,
-            innov_sq_sum=sq, snr_hist=snr_hist, cn0=cn0, valid=valid)
+            innov_sq_sum=sq, zk=zk, snr_hist=snr_hist, cn0=cn0, valid=valid)
 
         # common-epoch time of the record: the earliest channel's block
         # start, tt − (num − min(num) + 1)/fs
         local_time = (tt - (num - (num.min() - 1)).to(f64_) / fs_t).min()
-        return dict(
+        return new, dict(
             corr=corr, carr_err=carr_err, code_err=code_err,
             code_freq=code_freq, carr_freq=carr_freq, delta_pr=delta_pr,
             num_sample=num, absolute_sample=abs_sample, rem_chip=rem_new,
@@ -408,32 +431,139 @@ def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
             carr_nco=pll,
             # extrapolated SV position (navSolutionsVT.svxyz_pos, …:431)
             # and the post-fit predicted measurement H·δx (…:433-435)
-            sv_pos=g.pos0 + sv_delta32.to(f64_), predicted_z=H @ err,
+            sv_pos=g["pos0"] + sv_delta32.to(f64_), predicted_z=H @ err,
             total_state=total, state_cov_diag=torch.diagonal(P),
             kalman_gain=K, innovation=z, r_diag=r_diag,
             # per-measurement equivalent loop bandwidth [Hz]:
             # diag(H·K)/4/293/0.001 (trackingVT_POS_updated_by_20210621.m:384)
-            loop_bw_hz=(H * K.T).sum(dim=1) / bw_div,
+            loop_bw_hz=(H * K.T).sum(dim=1) / self.bw_div,
             el=st["el_rad"], az=st["az_rad"], sv_vel=sv_vel32,
             local_time=local_time, transmit_time=tt, cn0=cn0, valid=valid)
 
-    rows = []
+    def atmosphere_due(self, count: int, group_len: int) -> bool:
+        """The atmosphere refreshes at the group head whose steps contain a
+        multiple of corr_update_ms: the cadence holds for any group length
+        and chunking."""
+        corr = self.params.corr_update_ms
+        return ((corr - count % corr) % corr) < group_len
+
+    def end_state(self, count: int) -> VTState:
+        st = dict(self.st)
+        st["phase_fp"] = st["phase_fp"].to(torch.int32)
+        st["step_count"] = torch.tensor(count, dtype=torch.int32,
+                                        device=self.dev)
+        return VTState(**st)
+
+
+def _commit(dst: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
+            ) -> None:
+    """Write `new` into the fixed tensors `dst` (made on the first call)."""
+    for k, v in new.items():
+        if k not in dst:
+            dst[k] = v.clone()
+        elif v is not dst[k]:
+            dst[k].copy_(v)
+
+
+def _capture(fn, bank: BankPlan) -> Tuple[torch.cuda.CUDAGraph, int]:
+    """`fn()` captured into a CUDA graph on a side stream (nothing runs),
+    with the launches of `bank` it holds.  The capture draws its
+    temporaries from a pool of its own; a failure raises."""
+    dev = bank.device
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    before = bank.captured
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return graph, bank.captured - before
+
+
+def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
+            chips: torch.Tensor, eph: Ephemeris, iono_alpha, iono_beta,
+            params: VTParams, n_steps: int, fs: float, blk: int, f_if: float,
+            fc: float, code_freq_basis: float, doy: int,
+            graph: Optional[bool] = None
+            ) -> Tuple[VTState, Dict[str, torch.Tensor]]:
+    """Run `n_steps` ms of vector tracking inside one raw chunk.
+
+    raw (L, 2) int8/int16 IQ on the state's device, `chunk_start` the
+    absolute sample of raw[0]; chips (N, 1023) float32.  Returns
+    (new state, records): records are (T, …) tensors on the device plus
+    `fault`, the (1,) int32 flag of `ops/corr_bank` that the caller reads
+    back (`raise_on_fault`) with the records.  Reads `state.step_count`
+    once on entry; nothing else crosses to the host.
+
+    The counterpart of the JAX package's `lax.scan` over its step: the
+    carry, the group cache and the records live in fixed tensors that a
+    step updates in place (the records at a row index that is itself a
+    device tensor), so a step is the same work every ms.  With `graph` (the
+    default on a CUDA device, not available on the CPU) the refresh and the
+    step are captured into CUDA graphs, one per cadence signature (refresh
+    with or without the atmosphere; step that closes a C/N0 window or an
+    adaptive-R interval or neither), each at first need, and replayed from
+    then on; the first refresh and the first step of a call run eagerly
+    (the step count may be 0 there, and the libraries set themselves up on
+    their first call).  The graphs hold the chunk's address and live as
+    long as the call.  Both ways give the same bits; a capture that fails
+    raises.  A replayed step adds the bank launches it holds to
+    `correlator_bank.launches`.
+    """
+    dev = raw.device
+    if graph is None:
+        graph = dev.type == "cuda"
+    if graph and dev.type != "cuda":
+        raise ValueError(f"vt_scan: CUDA graphs need a CUDA device, not {dev}")
+    run = _VTChunk(raw, chunk_start, state, chips, eph, iono_alpha, iono_beta,
+                   params, fs, blk, f_if, fc, code_freq_basis, doy)
+    recs: Dict[str, torch.Tensor] = {}
+    graphs: Dict[tuple, Tuple[torch.cuda.CUDAGraph, int]] = {}
+
+    def refresh(atmosphere: bool) -> None:
+        new = run.refresh_values(atmosphere)
+        _commit(run.g, {k: new[k] for k in _GROUP_FIELDS})
+        _commit(run.st, {k: new[k] for k in _ATMOSPHERE_FIELDS})
+
+    def step(first: bool, window: bool, r_update: bool) -> None:
+        new, rec = run.step_values(first, window, r_update)
+        if not recs:
+            recs.update({k: torch.empty((n_steps, *v.shape), dtype=v.dtype,
+                                        device=dev) for k, v in rec.items()})
+        for k, v in rec.items():
+            recs[k].index_copy_(0, run.row, v.unsqueeze(0))
+        _commit(run.st, new)
+        run.row += 1
+
+    def do(fn, *flags, eager: bool) -> None:
+        if eager or not graph:
+            fn(*flags)
+            return
+        key = (fn, *flags)
+        if key not in graphs:
+            graphs[key] = _capture(lambda: fn(*flags), run.bank)
+        held, launches = graphs[key]
+        held.replay()
+        correlator_bank.launches += launches
+
+    count = run.count0
     group = max(1, int(params.kepler_update_ms))
     done = 0
     while done < n_steps:
         n_group = min(group, n_steps - done)
-        cache = kepler_refresh(n_group)
-        for _ in range(n_group):
-            rows.append(step(cache))
+        do(refresh, run.atmosphere_due(count, n_group), eager=done == 0)
+        for i in range(n_group):
+            do(step, count == 0, (count + 1) % params.cn0_window == 0,
+               (count + 1) % params.r_update_ms == 0, eager=done + i == 0)
             count += 1
         done += n_group
 
-    st["phase_fp"] = st["phase_fp"].to(torch.int32)
-    st["step_count"] = torch.tensor(count, dtype=torch.int32, device=dev)
-    recs = ({k: torch.stack([r[k] for r in rows]) for k in rows[0]}
-            if rows else {})
-    recs["fault"] = fault
-    return VTState(**st), recs
+    recs["fault"] = run.fault
+    return run.end_state(count), recs
 
 
 @dataclasses.dataclass

@@ -244,9 +244,9 @@ def track_scan(raw: torch.Tensor, chunk_start: int, state: TrackState,
 
     Arguments and result as `ops.track_chunk.track_chunk`.  Per block each
     channel's window of `spec.blk` samples is cut at ptr − chunk_start
-    (`corr_bank.WindowCutter`), `correlator_bank_windows` correlates the
-    windows (the CUDA kernel for a chunk on the card, its plain version on
-    the CPU) and `block_step` closes the loops: the arithmetic of
+    (`corr_bank.WindowCutter`), `correlator_bank_windows`, prepared once
+    for the scan (`corr_bank.WindowsPlan`), correlates the windows (the
+    CUDA kernel for a chunk on the card, its plain version on the CPU) and `block_step` closes the loops: the arithmetic of
     `track_chunk_reference`, so on the CPU the two agree bit for bit.
 
     Nothing inside the loop synchronises with the host: block lengths and
@@ -263,13 +263,13 @@ def track_scan(raw: torch.Tensor, chunk_start: int, state: TrackState,
     k = tc.LoopConsts.make(spec, dev)
     fault = corr_bank.new_fault(dev)
     cut = corr_bank.WindowCutter(raw, blk)
+    # the bank's checks, tables and scratch, once for the scan
+    plan = corr_bank.WindowsPlan(chips, tap_fp, spec.fs, blk, spec.remove_dc,
+                                 fault, grid)
 
     def bank(b: tc.BlockNCO) -> torch.Tensor:
-        corr, _ = corr_bank.correlator_bank_windows(
-            cut(b.ptr - chunk_start), b.rem_chip, b.code_freq, b.phase,
-            b.carr_fp, b.num, chips, tap_fp, spec.fs, spec.remove_dc, fault,
-            grid)
-        return corr
+        return plan(cut(b.ptr - chunk_start), *(t.contiguous() for t in (
+            b.rem_chip, b.code_freq, b.phase, b.carr_fp, b.num)))
 
     st = state._replace(phase_fp=state.phase_fp.to(torch.int64))
     rows = []

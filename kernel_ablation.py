@@ -9,10 +9,12 @@ of the design taken out again (the tree's sources are not touched).  Every
 build is timed on chip_smoke.py's phase-2 workload (58 MHz int8, 8
 channels): track_chunk over 1000 E/P/L blocks and over 300 blocks of the
 25-tap bank (CUDA events over the wrapper call), correlator_bank_windows at
-1 ms and 10 ms, 3 taps (device time per launch from a replayed CUDA graph).
+1 ms and 10 ms, 3 taps, and the prepared correlator_bank (BankPlan) at 3 and
+29 taps (device time per launch from a replayed CUDA graph).
 One JSON line per variant; the variants differ from `as_is` only in time
 (`equal_to_as_is` says so), except `no_samples`, which correlates nothing
-and shows what a block costs beside its samples.
+and shows what a block costs beside its samples, and `no_reduction`, which
+leaves a channel's partial sums unadded.
 
 Variants, by what they put back:
   one_cta_per_channel   no cluster: one CTA per channel (no source change)
@@ -25,13 +27,34 @@ Variants, by what they put back:
   mod_per_sample_tap    `mod 1023` for every sample and tap, not once per run
   serial_tail           thread 0 alone closes the loops and hands the state
                         back through shared memory and a barrier
+  per_cta_tables        every CTA of a bank makes the code table itself at
+                        every launch (a conversion and a `mod 1023` per
+                        entry, the taps' least and largest on one thread),
+                        not 16-byte copies of tables made once
+  no_reduction          the banks' parts leave their sums in their slots and
+                        nobody adds them: what the ticket and the last
+                        part's sum cost
+  cluster_reduction     the parts of a bank's channel are a thread-block
+                        cluster (2, 4 or 8, the portable size): every rank
+                        writes its sums into rank 0's shared memory and
+                        rank 0 adds them in rank order after one cluster
+                        barrier; no slots, no ticket.  Its line gives the
+                        prepared correlator_bank by parts per channel, to be
+                        read beside `ticket_by_parts` of `bank_design`
+Beside them, `bank_design`: the prepared correlator_bank as built, by parts
+per channel, by threads per CTA (the wrapper's rule overridden), for 2, 4, 8
+and 12 channels, and followed by an empty launch (what a second kernel would
+add).
 Last, `section_clocks`: track_chunk with clock64() read between the sections
 of a block and written into the records in place of their values; the line
-gives each section's mean cycles per block on rank 0 of channel 0.
+gives each section's mean cycles per block on rank 0 of channel 0.  And
+`bank_section_clocks`: the same for one launch of the prepared bank, written
+into the parts' slots; mean cycles over all CTAs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -144,6 +167,92 @@ VARIANTS = {
          "      rec_i[2 * plane + row] = c6 - c5;\n"),
         ("    num_geom = num;\n  }\n",
          "    num_geom = num;\n    c_end = clock64();\n  }\n")]},
+    "per_cta_tables": {"nco_common.cuh": [
+        ("  for (int c = threadIdx.x; c < kCodePieces + kTapPieces; "
+         "c += blockDim.x) {\n"
+         "    if (c < kCodePieces)\n"
+         "      cp_async16(&tb.chips[2 * c], code + 2 * c);\n"
+         "    else\n"
+         "      cp_async16(&tb.tap[2 * (c - kCodePieces)],\n"
+         "                 taps + 2 * (c - kCodePieces));\n"
+         "  }\n",
+         "  for (int i = threadIdx.x; i < kTableLen; i += blockDim.x)\n"
+         "    tb.chips[i] = (double)(float)code[kPad + "
+         "floor_mod_code(i - kPad)];\n"
+         "  if (threadIdx.x < kMaxTaps) tb.tap[threadIdx.x] = "
+         "taps[threadIdx.x];\n"
+         "  if (threadIdx.x == 0) {\n"
+         "    long long lo = taps[kMaxTaps], hi = taps[kMaxTaps + 1];\n"
+         "    for (int t_ = 0; t_ < kMaxTaps; ++t_) {\n"
+         "      lo = min(lo, taps[t_]);\n"
+         "      hi = max(hi, taps[t_]);\n"
+         "    }\n"
+         "    tb.tap[kMaxTaps] = lo;\n"
+         "    tb.tap[kMaxTaps + 1] = hi;\n"
+         "  }\n")]},
+    "no_reduction": {"corr_bank.cu": [
+        ("      s_last = atomicAdd(p.ticket + ch, 1) == p.n_split - 1;\n",
+         "      s_last = 0;\n")]},
+    "cluster_reduction": {"corr_bank.cu": [
+        ('#include "nco_common.cuh"\n\nnamespace {\n\n',
+         '#include <cooperative_groups.h>\n\n#include "nco_common.cuh"\n\n'
+         "namespace {\n\nnamespace cg = cooperative_groups;\n"),
+        ("  __shared__ int s_last;\n",
+         "  __shared__ int s_last;\n"
+         "  __shared__ double s_x[8][2 * kMaxTaps];  // rank 0's\n"),
+        ("  } else {\n    // every part into its slot;",
+         "  } else if (true) {\n"
+         "    cg::cluster_group cluster = cg::this_cluster();\n"
+         "    if (tid < 2 * ntaps) *cluster.map_shared_rank(&s_x[part][tid], 0)"
+         " = v;\n"
+         "    cluster.sync();\n"
+         "    if (part == 0 && tid < 2 * ntaps) {\n"
+         "      double total = 0.0;\n"
+         "      for (int s = 0; s < p.n_split; ++s) total += s_x[s][tid];\n"
+         "      out[tid] = (float)total;\n"
+         "    }\n"
+         "  } else {\n    // every part into its slot;"),
+        ("  return cudaLaunchKernel(func, dim3(p.n_ch, p.n_split), "
+         "dim3(p.threads), args,\n"
+         "                          kSmemBytes, stream);\n",
+         "  if (p.n_split > 8) return cudaErrorInvalidValue;\n"
+         "  cudaLaunchAttribute attr;\n"
+         "  attr.id = cudaLaunchAttributeClusterDimension;\n"
+         "  attr.val.clusterDim.x = 1;\n"
+         "  attr.val.clusterDim.y = p.n_split;\n"
+         "  attr.val.clusterDim.z = 1;\n"
+         "  cudaLaunchConfig_t cfg = {};\n"
+         "  cfg.gridDim = dim3(p.n_ch, p.n_split);\n"
+         "  cfg.blockDim = dim3(p.threads);\n"
+         "  cfg.dynamicSmemBytes = kSmemBytes;\n"
+         "  cfg.stream = stream;\n"
+         "  cfg.attrs = &attr;\n"
+         "  cfg.numAttrs = 1;\n"
+         "  return cudaLaunchKernelExC(&cfg, func, args);\n")]},
+    "bank_section_clocks": {"corr_bank.cu": [
+        ("  ShareT sh;\n  part_share(&sh, p, raw, b.off, b.num);\n",
+         "  const long long c0 = clock64();\n"
+         "  ShareT sh;\n  part_share(&sh, p, raw, b.off, b.num);\n"),
+        ("  load_r_phasors<ShareT::kRows>(carr_fp);\n",
+         "  load_r_phasors<ShareT::kRows>(carr_fp);\n"
+         "  const long long c1 = clock64();\n"),
+        ("  walk(sh, raw, p.n_raw, t0, t1, work, NoAhead());\n\n"
+         "  const double v = cta_tap_sum<NT>(work.acc_i, work.acc_q, ntaps, "
+         "s_part);\n",
+         "  walk(sh, raw, p.n_raw, t0, t1, work, NoAhead());\n"
+         "  const long long c2 = clock64();\n"
+         "  const double v = cta_tap_sum<NT>(work.acc_i, work.acc_q, ntaps, "
+         "s_part);\n"
+         "  const long long c3 = clock64();\n"),
+        ("      if (tid == 0) p.ticket[ch] = 0;\n    }\n  }\n}\n",
+         "      if (tid == 0) p.ticket[ch] = 0;\n    }\n  }\n"
+         "  const long long c4 = clock64();\n"
+         "  __syncthreads();\n"
+         "  if (tid == 0) {\n"
+         "    double* d = slot_of(p, ch, part);\n"
+         "    d[0] = (double)(c1 - c0); d[1] = (double)(c2 - c1);\n"
+         "    d[2] = (double)(c3 - c2); d[3] = (double)(c4 - c3);\n"
+         "  }\n}\n")]},
     "no_samples": {"nco_common.cuh": [
         ("    if (hi <= lo) return;\n    const int q0 = lo >> 7;\n"
          "    long long tap_r",
@@ -215,6 +324,114 @@ def windows_args(work: dict, state, pdi: int, dev) -> tuple:
             cs.FS, False)
 
 
+def bank_args(work: dict, state, dev, channels: int = 8) -> tuple:
+    """(chunk, code tables, the six per-block words, block window) of one
+    1 ms block of `channels` channels from the tracked `state` (past its 8,
+    the first again with their windows 1000 samples on)."""
+    cfg = work["cfg"]
+    S = cfg.signal.samples_per_ms
+    blk = -(-(S + 256) // 128) * 128
+    start = int(state.ptr.min())
+    raw = work["stager"].stage(work["src"].read_iq_values(start, 3 * S))
+    n = state.ptr.shape[0]
+    idx = torch.arange(channels, device=dev) % n
+    ptr = state.ptr[idx] + 1000 * (torch.arange(channels, device=dev) // n)
+    rem, freq = state.rem_chip[idx].contiguous(), \
+        state.code_freq[idx].contiguous()
+    words = (ptr - start, rem, freq,
+             state.phase_fp.to(torch.int64)[idx].contiguous(),
+             torch.round(state.carr_freq[idx] / cs.FS * tc.Q32
+                         ).to(torch.int64),
+             torch.ceil((1023.0 - rem) / (freq / cs.FS)).to(torch.int64))
+    return raw, work["chips"][idx].contiguous(), words, blk
+
+
+@contextlib.contextmanager
+def threads_of(threads):
+    """Every bank CTA of a launch prepared inside gets `threads` threads
+    (None: the wrapper's rule stands)."""
+    rule = cb.default_threads
+    if threads is not None:
+        cb.default_threads = lambda ntaps, n_split, blk: threads
+    try:
+        yield
+    finally:
+        cb.default_threads = rule
+
+
+def bank_us(args: tuple, taps, dev, tail=None, n_split=None, threads=None
+            ) -> tuple:
+    """(µs per launch of the prepared bank from a replayed graph, its
+    result); `tail()` is called after every launch."""
+    raw, chips, words, blk = args
+    with threads_of(threads):
+        plan = cb.BankPlan(raw, chips, cb.tap_offsets_fp(taps, dev), cs.FS,
+                           blk, n_split=n_split)
+
+    def call():
+        plan(*words)
+        if tail:
+            tail()
+
+    out = plan(*words).clone()
+    cb.raise_on_fault(plan.fault)
+    return 1e3 * cs.timed_graph_ms(call, 10), out
+
+
+def bank_design(work: dict, state, dev) -> dict:
+    """The prepared bank as built, over its launch parameters."""
+    grids = {"3taps": cs.VTParams().taps,
+             "29taps": cs.VTParams.multicorr().taps}
+    res = {}
+    for name, taps in grids.items():
+        args = bank_args(work, state, dev)
+        base_us, base = bank_us(args, taps, dev)
+        r = {"default_us": base_us,
+             "then_empty_launch_us": bank_us(
+                 args, taps, dev, tail=lambda: cb.empty_launch(dev))[0]}
+        equal = True
+        for label, kw, values in (
+                ("ticket_by_parts", "n_split", (1, 2, 4, 8, 12, 16, 32)),
+                ("by_threads", "threads",
+                 (128, 256, 512) if len(taps) == 3 else (128, 256))):
+            r[label] = {}
+            for v in values:
+                us, out = bank_us(args, taps, dev, **{kw: v})
+                r[label][str(v)] = us
+                equal &= bool(torch.equal(out, base))
+        for channels in (2, 4, 12):
+            sub = bank_args(work, state, dev, channels)
+            r[f"{channels}_channels_by_parts"] = {
+                str(k): bank_us(sub, taps, dev, n_split=k)[0]
+                for k in sorted({8, 11, 16, 24, 32, 48, 64,
+                                 cb.default_split(channels, sub[3])})
+                if channels * k <= 2 * cb.SM_COUNT}
+        r["4_channels_32_parts_by_threads"] = {
+            str(t): bank_us(bank_args(work, state, dev, 4), taps, dev,
+                            n_split=32, threads=t)[0]
+            for t in ((128, 256, 512) if len(taps) == 3 else (128, 256))}
+        r["all_equal_to_default"] = equal
+        res[name] = r
+    res["empty_launch_us"] = 1e3 * cs.timed_graph_ms(
+        lambda: cb.empty_launch(dev), 10)
+    return res
+
+
+def cluster_reduction(work: dict, state, dev, base: dict) -> dict:
+    """The prepared bank with a cluster per channel, by parts per channel
+    (a cluster's size)."""
+    res = {"equal_to_as_is": True}
+    for name, taps in (("3taps", cs.VTParams().taps),
+                       ("29taps", cs.VTParams.multicorr().taps)):
+        args = bank_args(work, state, dev)
+        res[name] = {}
+        for k in (2, 4, 8):
+            res[name][str(k)], out = bank_us(args, taps, dev, n_split=k)
+            res["equal_to_as_is"] &= bool(
+                torch.equal(out, base[f"bank_{name}"]))
+    return res
+
+
 def measure(work: dict, dev, cluster=None) -> dict:
     chips = work["chips"]
     out, res = {}, {}
@@ -233,10 +450,18 @@ def measure(work: dict, dev, cluster=None) -> dict:
     flag = cb.new_fault(dev)
     for pdi in (1, 10):
         args = windows_args(work, early, pdi, dev)
-        out[f"win{pdi}"], _ = cb.correlator_bank_windows(*args)
+        # prepared once, as track_scan does
+        plan = cb.WindowsPlan(args[6], args[7], cs.FS, args[0].shape[1],
+                              fault=flag)
+        call = tuple(t.contiguous() for t in args[:6])
+        out[f"win{pdi}"] = plan(*call)
         res[f"windows_bank_{pdi}ms_us"] = 1e3 * cs.timed_graph_ms(
-            lambda: cb.correlator_bank_windows(*args, fault=flag), 10)
-    return res, out
+            lambda: plan(*call), 10)
+    for name, taps in (("3taps", cs.VTParams().taps),
+                       ("29taps", cs.VTParams.multicorr().taps)):
+        res[f"bank_{name}_us"], out[f"bank_{name}"] = bank_us(
+            bank_args(work, early, dev), taps, dev)
+    return res, out, early
 
 
 def section_clocks(work: dict, dev) -> dict:
@@ -252,6 +477,26 @@ def section_clocks(work: dict, dev) -> dict:
                                       n_steps)
         res[kind] = {label: float(rec[f][100:, 0].double().mean())
                      for f, label in names.items() if label}
+    return res
+
+
+def bank_section_clocks(work: dict, state, dev) -> dict:
+    """Mean cycles of each section of a correlating CTA, one launch."""
+    res = {}
+    for name, taps in (("3taps", cs.VTParams().taps),
+                       ("29taps", cs.VTParams.multicorr().taps)):
+        raw, chips, words, blk = bank_args(work, state, dev)
+        plan = cb.BankPlan(raw, chips, cb.tap_offsets_fp(taps, dev), cs.FS,
+                           blk)
+        for _ in range(3):
+            plan(*words)
+        torch.cuda.synchronize()
+        slots = plan._call.partial.reshape(len(chips), -1,
+                                           2 * (len(taps) + 1))
+        res[name] = dict(zip(
+            ("shares_copies_started_and_r_phasors", "tile_wait_and_samples",
+             "cta_tap_sum", "slot_ticket_and_last_sum"),
+            slots[:, :, :4].mean(dim=(0, 1)).tolist()))
     return res
 
 
@@ -287,19 +532,29 @@ def main() -> int:
             print(json.dumps({"variant": name, **section_clocks(work, dev)}),
                   flush=True)
             continue
-        res, out = measure(work, dev)
+        if name == "cluster_reduction":
+            print(json.dumps({"variant": name, **cluster_reduction(
+                work, early, dev, base)}), flush=True)
+            continue
+        if name == "bank_section_clocks":
+            print(json.dumps({"variant": name, **bank_section_clocks(
+                work, early, dev)}), flush=True)
+            continue
+        res, out, early = measure(work, dev)
         if base is None:
             base = out
         res["equal_to_as_is"] = all(same(out[k], base[k]) for k in out)
         print(json.dumps({"variant": name, **res}), flush=True)
         if name == "as_is":
-            res, out = measure(work, dev, cluster=1)
+            print(json.dumps({"variant": "bank_design",
+                              **bank_design(work, early, dev)}), flush=True)
+            res, out, _ = measure(work, dev, cluster=1)
             res["equal_to_as_is"] = all(same(out[k], base[k]) for k in out)
             print(json.dumps({"variant": "one_cta_per_channel", **res}),
                   flush=True)
     # the same build again: how far two readings of one build differ
     use_libraries(libs["as_is"])
-    res, _ = measure(work, dev)
+    res, _, _ = measure(work, dev)
     print(json.dumps({"variant": "as_is_again", **res}), flush=True)
     return 0
 

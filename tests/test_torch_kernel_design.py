@@ -17,7 +17,16 @@ make that free, and each is held here:
 (d) the share geometry (cluster size, split, rows per rank or part, tiles
     with an origin rounded down to 16 bytes, what is staged ahead with a
     margin and topped up) covers every sample of a block exactly once.
+
+And (e): the prepared launches (`BankPlan`, `WindowsPlan`) are the plain
+versions on the CPU and refuse what the checked entries refuse; with (c),
+the code table that is made once per track is the table every CTA used to
+make per launch; with (d), the threads a CTA is given fit the kernel
+instance that its tap count is launched on.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,8 +42,9 @@ FS = 4.092e6
 
 
 def threads_for(ntaps):
-    """Threads of a correlator CTA (`threads_for` in csrc/nco_common.cuh)."""
-    return 512 if ntaps <= 4 else 256
+    """Threads of a correlator CTA compiled for `ntaps` taps, 0: the tap
+    count read at run time (`threads_for` in csrc/nco_common.cuh)."""
+    return 512 if 0 < ntaps <= 4 else 256
 
 
 TAPS = {3: (-0.5, 0.0, 0.5),
@@ -108,14 +118,16 @@ def _terms(b, remove_dc):
     return code, iq, grid
 
 
-def _cta_sum(terms, lo, hi, origin):
+def _cta_sum(terms, lo, hi, origin, threads=None):
     """Float64 sum of terms[..., lo:hi] in a CTA's order.  A thread takes
     runs of 8 samples that start `origin` samples before `lo` (the tile's
-    16-byte boundary), run g going to thread g mod `threads_for`, and adds them in
-    sample order; a warp adds its threads by the xor-shuffle tree; the warps
-    are added in order.  terms: (T, 2, blk) float64."""
+    16-byte boundary), run g going to thread g mod `threads` (default
+    `threads_for`), and adds them in sample order; a warp adds its threads
+    by the xor-shuffle tree; the warps are added in order.  terms:
+    (T, 2, blk) float64."""
     lead = terms.shape[:-1]
-    threads = threads_for(terms.shape[0])
+    if threads is None:
+        threads = threads_for(terms.shape[0])
     if hi <= lo:
         return np.zeros(lead)
     k0 = lo - origin
@@ -183,7 +195,7 @@ def test_order_is_free_over_cluster_ranks(n_rank, ntaps, remove_dc):
 @pytest.mark.parametrize("n_split", [1, 16, 64])
 def test_order_is_free_over_bank_parts(n_split, ntaps, remove_dc):
     """corr_bank.cu's order: parts of whole rows, summed per CTA, added in
-    part order by the second kernel."""
+    part order."""
     b = _block(ntaps, seed=200 + ntaps)
     prod, want = _products(b, remove_dc)
     for ch in range(prod.shape[0]):
@@ -197,6 +209,38 @@ def test_order_is_free_over_bank_parts(n_split, ntaps, remove_dc):
             f"{n_split} parts, channel {ch}: "
             f"{np.abs(got - want[ch]).max():.3g} off; "
             + _magnitudes(prod, want))
+
+
+@pytest.mark.parametrize("remove_dc", [False, True])
+@pytest.mark.parametrize("ntaps", [3, 25])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 5, 8, 13, 16])
+def test_one_launch_reduction_adds_slots_in_part_order(n_split, ntaps,
+                                                       remove_dc):
+    """corr_bank.cu's single launch: the parts of a channel finish in any
+    order, each leaves its float64 tap sums in its own slot, and whoever
+    closes the channel (the part that arrives last, or rank 0 of a cluster
+    after its barrier) adds the slots from part 0 up and rounds to float32
+    once.  Mirrored with the parts arriving in a shuffled order and CTAs of
+    128 threads up to the kernel's most: the plain version's bits."""
+    b = _block(ntaps, seed=300 + ntaps)
+    prod, want = _products(b, remove_dc)
+    rng = np.random.default_rng(n_split)
+    for ch in range(prod.shape[0]):
+        num = int(b["num"][ch])
+        for threads in (128, threads_for(ntaps)):
+            slots = np.full((n_split,) + prod.shape[1:3], np.nan)
+            for part in rng.permutation(n_split):
+                lo, hi = cb.part_share(num, n_split, int(part))
+                slots[part] = _cta_sum(prod[ch], lo, hi, (ch + part) % 8,
+                                       threads)
+            total = np.zeros(prod.shape[1:3])
+            for part in range(n_split):
+                total = total + slots[part]
+            got = total.astype(np.float32)
+            assert np.array_equal(got, want[ch]), (
+                f"{n_split} parts of {threads} threads, channel {ch}: "
+                f"{np.abs(got - want[ch]).max():.3g} off; "
+                + _magnitudes(prod, want))
 
 
 # ------------------------------------------------- (b) one conversion a sample
@@ -264,6 +308,69 @@ def test_incremental_chip_index_is_exact(seed, run):
     assert fixed < 0.05 * got.size
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_prepared_code_table_is_the_per_launch_rule(seed):
+    """`bank_tables` makes once what every CTA used to make per launch
+    (`load_code` in csrc/nco_common.cuh): entry i of a channel's table is
+    chip (i − 64) mod 1023 as float64, so the index a run keeps (the high
+    word plus the run's bias plus the pad) reads the exact chip while the
+    run stays inside the pad, and the wrapped index reads it when it does
+    not; taps to ±14 chips, negative indices, runs that start before sample
+    0.  The tap words are the taps, zeros, then their least and largest."""
+    rng = np.random.default_rng(40 + seed)
+    chips = torch.from_numpy(
+        rng.choice([-1.0, 1.0], (3, CODE_LENGTH)).astype(np.float32))
+    taps = np.concatenate([[-14.0, 14.0, 0.0], rng.uniform(-14, 14, 8)])
+    tap_fp = cb.tap_offsets_fp(taps, "cpu")
+    tables = cb.bank_tables(chips, tap_fp)
+    pad, n_tab = cb.CODE_PAD, cb.TABLE_LEN
+    assert tables.code.shape == (3, n_tab) and n_tab % 2 == 0
+    assert tables.code.dtype == torch.float64 and tables.ntaps == len(taps)
+    i = np.arange(n_tab)
+    assert np.array_equal(tables.code.numpy(),
+                          chips.numpy()[:, (i - pad) % CODE_LENGTH])
+    words = tables.taps.numpy()
+    assert words.shape == (tc.MAX_TAPS + 2,) and words.dtype == np.int64
+    assert np.array_equal(words[:len(taps)], tap_fp.numpy())
+    assert not words[len(taps):tc.MAX_TAPS].any()
+    assert words[tc.MAX_TAPS] == tap_fp.min()
+    assert words[tc.MAX_TAPS + 1] == tap_fp.max()
+
+    fs = float(rng.uniform(2.0e6, 60e6))
+    step_fp = int(round(1.023e6 * (1 + rng.uniform(-5e3, 5e3) / 1575.42e6)
+                        / fs * tc.Q32))
+    base_fp = int(round(rng.uniform(-0.6, 1.6) * tc.Q32))
+    run = 8
+    k0 = np.arange(-int(rng.integers(0, run)), int(fs * 2e-3), run)
+    kb = base_fp + k0.astype(np.int64) * step_fp - 1
+    bias = np.mod(kb >> 32, CODE_LENGTH) - (kb >> 32) + pad
+    k = k0[:, None] + np.arange(run)[None, :]
+    # with taps to ±14 chips every run stays inside the pad; taps past the
+    # pad (±80 chips) also meet the runs that leave it
+    for tp in (tap_fp.numpy(), cb.tap_offsets_fp((-80.0, 0.0, 80.0),
+                                                 "cpu").numpy()):
+        ci = ((kb[:, None, None] + (np.arange(run) * step_fp)[None, :, None]
+               + tp[None, None, :]) >> 32) + bias[:, None, None]
+        want = np.mod((base_fp - 1 + tp[None, None, :]
+                       + k[:, :, None] * step_fp) >> 32, CODE_LENGTH)
+        # the kernel's test for a run: its first and last index, least and
+        # largest tap, inside the table
+        span = (run - 1) * step_fp
+        first = ((np.minimum(kb, kb + span) + tp.min()) >> 32) + bias
+        last = ((np.maximum(kb, kb + span) + tp.max()) >> 32) + bias
+        safe = (first >= 0) & (last < CODE_LENGTH + 2 * pad)
+        if abs(tp).max() <= 14 * tc.Q32:
+            assert safe.all()
+        else:
+            assert 0 < safe.sum() < len(safe)       # both paths are met
+        assert ci[safe].min() >= 0 and ci[safe].max() < n_tab
+        wrapped = np.mod(ci - pad, CODE_LENGTH) + pad
+        for ch in range(3):
+            table, code = tables.code.numpy()[ch], chips.numpy()[ch]
+            assert np.array_equal(table[ci[safe]], code[want[safe]])
+            assert np.array_equal(table[wrapped[~safe]], code[want[~safe]])
+
+
 # ------------------------------------------------------ (d) share geometry
 
 def test_cluster_size_rule():
@@ -285,10 +392,17 @@ def test_cluster_size_rule():
 
 def test_default_split_is_one_wave_of_parts_worth_their_setup():
     """One CTA an SM at most, parts never shorter than MIN_PART_ROWS rows, so
-    a short block gets fewer parts than a long one; never fewer than one."""
+    a short block gets fewer parts than a long one; never fewer than one.
+    A CTA has 256 threads unless a part gives each of 512 two runs."""
     blk1, blk10 = 58368, 580352        # 58 MHz: pdi·S + 256, rounded to 128
     assert cb.default_split(8, blk1) == cb.default_split(8, blk10) == 16
-    assert cb.default_split(8, 4352) == 1 < cb.default_split(8, 20480) == 6
+    assert cb.default_split(8, 4352) == 2 < cb.default_split(8, 20480) == 13
+    assert cb.default_split(4, blk1) == 33 and cb.default_split(12, blk1) == 11
+    assert cb.default_threads(3, 16, blk1) == 256 == cb.threads_for(29)
+    assert cb.default_threads(3, 16, blk10) == 512 == cb.threads_for(3)
+    assert cb.default_threads(29, 16, blk10) == 256
+    assert cb.default_threads(25, 1, 4352) == cb.default_threads(3, 1, 128) \
+        == 256
     assert cb.default_split(8, 128) == 1
     assert cb.default_split(1000, blk10) == 1
     for n_ch in (1, 2, 8, 12, 64, 300):
@@ -298,6 +412,33 @@ def test_default_split_is_one_wave_of_parts_worth_their_setup():
             assert k == 1 or (blk // 128) // k >= cb.MIN_PART_ROWS
             if blk > 128:
                 assert k >= cb.default_split(n_ch, blk // 2)
+
+
+@pytest.mark.parametrize("entry", ["corr_bank_kernel",
+                                   "corr_bank_windows_kernel"])
+def test_default_threads_fit_the_instance_that_is_launched(entry):
+    """For every tap count, split and block length, the threads the wrapper
+    asks for are no more than the instance csrc/corr_bank.cu launches for
+    that tap count was compiled for (its `__launch_bounds__`): a tap count
+    without an instance of its own runs the one that reads its tap count at
+    run time, built for 256 threads however few the taps.  The instances
+    are read from the source."""
+    src = (Path(cb._build.CSRC) / "corr_bank.cu").read_text()
+    compiled = {int(a) for a, b in re.findall(
+        r"case (\d+): BANK_LAUNCH\(%s, (\d+)," % entry, src) if a == b}
+    assert 3 in compiled and compiled <= {3, 25, 29}
+    assert f"default: BANK_LAUNCH({entry}, 0," in src
+    for ntaps in range(1, tc.MAX_TAPS + 1):
+        limit = threads_for(ntaps if ntaps in compiled else 0)
+        assert cb.threads_for(ntaps) <= limit
+        for blk in (128, 4352, 58368, 580352):
+            for n_split in (1, 2, 16, 33):
+                t = cb.default_threads(ntaps, n_split, blk)
+                assert 128 <= t <= limit and t % 32 == 0
+    # the few-tap instance does get its 16 warps where a part is long enough
+    assert cb.default_threads(3, 1, 58368) == 512
+    assert cb.default_threads(2, 1, 58368) == cb.default_threads(
+        4, 16, 580352) == 256
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -408,3 +549,156 @@ def test_staged_ahead_plus_top_up_covers_the_first_tile(seed):
                 assert top_up[0] % sh.g == 0 and top_up[1] % sh.g == 0
             if abs(nxt - num) <= 2 and hi > lo and rank < n_rank - 1:
                 assert top_up is None          # the usual block: no top-up
+
+
+# ------------------------------------------------------ (e) the prepared launch
+
+def _plan_words(b):
+    return (b["off"], b["rem"], b["step"] * FS, b["phase"], b["carr_fp"],
+            b["num"])
+
+
+@pytest.mark.parametrize("remove_dc", [False, True])
+@pytest.mark.parametrize("ntaps", [3, 25])
+def test_bank_plan_on_the_cpu_is_the_plain_version(ntaps, remove_dc):
+    """A `BankPlan` made once and called with the six per-block words gives
+    `correlator_bank_reference`'s bits, call after call, raises its flag the
+    same way, and `correlator_bank` (built on it) too; no kernel launch is
+    counted on the CPU."""
+    b = _block(ntaps, seed=400 + ntaps)
+    flag = cb.new_fault("cpu")
+    plan = cb.BankPlan(b["raw"], b["chips"], b["tap_fp"], FS, b["blk"],
+                       remove_dc, flag)
+    before = cb.correlator_bank.launches
+    for shift in (0, 7):
+        words = list(_plan_words(b))
+        words[0] = words[0] + shift
+        want, _ = cb.correlator_bank_reference(
+            b["raw"], *words, b["chips"], b["tap_fp"], FS, b["blk"],
+            remove_dc)
+        assert torch.equal(plan(*words), want)
+        got, _ = cb.correlator_bank(b["raw"], *words, b["chips"],
+                                    b["tap_fp"], FS, b["blk"], remove_dc)
+        assert torch.equal(got, want)
+    assert int(flag[0]) == 0 and cb.correlator_bank.launches == before
+    words = list(_plan_words(b))
+    words[5] = words[5].clone()
+    words[5][1] = b["blk"] + 1
+    out = plan(*words)
+    assert int(flag[0]) == 2 and not out[1].any()
+    with pytest.raises(RuntimeError, match="channel 1"):
+        cb.raise_on_fault(plan.fault)
+
+
+def test_bank_plan_checks_once_and_per_call():
+    """What `correlator_bank` refuses, the plan refuses: the chunk, the
+    code tables, the taps, the block window and the flag when it is made;
+    the six words' dtype, shape, device and contiguity at every call."""
+    b = _block(3, seed=9)
+    good = (b["raw"], b["chips"], b["tap_fp"], FS, b["blk"])
+    i64 = torch.int64
+    for bad in (
+            (b["raw"].to(torch.float32),) + good[1:],
+            (b["raw"][:, :1],) + good[1:],
+            (b["raw"], b["chips"][:, :1000]) + good[2:],
+            (b["raw"], b["chips"].double()) + good[2:],
+            good[:2] + (torch.zeros(33, dtype=i64),) + good[3:],
+            good[:2] + (b["tap_fp"].to(torch.int32),) + good[3:],
+            good[:4] + (b["blk"] + 1,), good[:4] + (0,)):
+        with pytest.raises(ValueError):
+            cb.BankPlan(*bad)
+    with pytest.raises(ValueError, match="fault"):
+        cb.BankPlan(*good, fault=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="no channels"):
+        cb.BankPlan(b["raw"], b["chips"][:0], *good[2:])
+    plan = cb.BankPlan(*good)
+    words = _plan_words(b)
+    plan(*words)
+    wide = torch.zeros((2, 2), dtype=i64)
+    for i, t in ((0, words[0].to(torch.int32)), (1, words[1].float()),
+                 (5, words[5][:1]), (3, wide[:, 0]), (2, words[2].to(i64))):
+        bad = list(words)
+        bad[i] = t
+        with pytest.raises(ValueError, match=("ptr_off", "rem_chip",
+                                              "code_freq", "phase_fp",
+                                              "carr_fp", "num")[i]):
+            plan(*bad)
+
+
+@pytest.mark.parametrize("remove_dc", [False, True])
+@pytest.mark.parametrize("ntaps", [3, 25])
+def test_windows_plan_on_the_cpu_is_the_plain_version(ntaps, remove_dc):
+    """A `WindowsPlan` made once and called with the windows and the five
+    per-block words gives `correlator_bank_windows_reference`'s bits, a new
+    tensor at every call, equal to `correlator_bank_windows` (built on it)
+    and to the fetching bank on the same samples; it raises its flag the
+    same way and counts no kernel launch on the CPU."""
+    b = _block(ntaps, seed=500 + ntaps)
+    flag = cb.new_fault("cpu")
+    plan = cb.WindowsPlan(b["chips"], b["tap_fp"], FS, b["blk"], remove_dc,
+                          flag)
+    before = cb.correlator_bank_windows.launches
+    words = _plan_words(b)
+    kept = []
+    for shift in (0, 7):
+        win = cb.cut_windows(b["raw"], words[0] + shift, b["blk"])
+        want, _ = cb.correlator_bank_windows_reference(
+            win, *words[1:], b["chips"], b["tap_fp"], FS, remove_dc)
+        got = plan(win, *words[1:])
+        assert torch.equal(got, want)
+        kept.append((got, want))
+        entry, _ = cb.correlator_bank_windows(
+            win, *words[1:], b["chips"], b["tap_fp"], FS, remove_dc)
+        fetched, _ = cb.correlator_bank(
+            b["raw"], words[0] + shift, *words[1:], b["chips"], b["tap_fp"],
+            FS, b["blk"], remove_dc)
+        assert torch.equal(entry, want) and torch.equal(fetched, want)
+    assert all(torch.equal(got, want) for got, want in kept)
+    assert kept[0][0].data_ptr() != kept[1][0].data_ptr()
+    assert int(flag[0]) == 0 and plan.captured == 0
+    assert cb.correlator_bank_windows.launches == before
+    num = words[5].clone()
+    num[1] = b["blk"] + 1
+    out = plan(win, *words[1:5], num)
+    assert int(flag[0]) == 2 and not out[1].any()
+    with pytest.raises(RuntimeError, match="channel 1"):
+        cb.raise_on_fault(plan.fault)
+
+
+def test_windows_plan_checks_once_and_per_call():
+    """What `correlator_bank_windows` refuses, the plan refuses: the code
+    tables, the taps, the window length and the flag when it is made; the
+    windows' and the five words' dtype, shape and contiguity at every
+    call."""
+    b = _block(3, seed=11)
+    good = (b["chips"], b["tap_fp"], FS, b["blk"])
+    i64 = torch.int64
+    for bad in (
+            (b["chips"][:, :1000],) + good[1:],
+            (b["chips"].double(),) + good[1:],
+            good[:1] + (torch.zeros(33, dtype=i64),) + good[2:],
+            good[:1] + (b["tap_fp"].to(torch.int32),) + good[2:],
+            good[:3] + (b["blk"] + 1,), good[:3] + (0,)):
+        with pytest.raises(ValueError):
+            cb.WindowsPlan(*bad)
+    with pytest.raises(ValueError, match="fault"):
+        cb.WindowsPlan(*good, fault=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="no channels"):
+        cb.WindowsPlan(b["chips"][:0], *good[1:])
+    plan = cb.WindowsPlan(*good)
+    words = _plan_words(b)
+    win = cb.cut_windows(b["raw"], words[0], b["blk"])
+    plan(win, *words[1:])
+    twice = torch.stack([win, win], 1)
+    for bad_win in (win.float(), win[:, :-128], win[:1], twice[:, 0]):
+        with pytest.raises(ValueError, match="win must be"):
+            plan(bad_win, *words[1:])
+    wide = torch.zeros((2, 2), dtype=i64)
+    for i, t in ((1, words[1].float()), (5, words[5][:1]), (3, wide[:, 0]),
+                 (2, words[2].to(i64)), (4, words[4].to(torch.int32))):
+        bad = list(words)
+        bad[i] = t
+        with pytest.raises(ValueError, match=("ptr_off", "rem_chip",
+                                              "code_freq", "phase_fp",
+                                              "carr_fp", "num")[i]):
+            plan(win, *bad[1:])

@@ -526,6 +526,186 @@ def test_vt_params_carry_the_jax_values(preset):
         assert (t.taps[4], t.taps[14], t.taps[24]) == (0.5, 0.0, -0.5)
 
 
+# ------------------------- (c2) the static-state scan and its CUDA graphs
+
+
+# the scenario's position, epoch and broadcast set (tests/scenario.py), kept
+# here so that the cases below need nothing but the port
+_STATIC_LLH = (0.3897057693107332, 1.9926489077944098, 4.0)
+_STATIC_TOW = 388799.0
+_STATIC_EPH = dict(
+    sqrta=5153.6413, ecc=0.00122963, m0=2.14587329, omega0=1.25789432,
+    i0=0.96679784, w=-0.89245321, deltan=4.3267e-09, omegadot=-7.2345e-09,
+    idot=-4.2e-10, cuc=1.5272e-07, cus=2.3842e-07, crc=287.46875,
+    crs=-2.59375, cic=-7.45058e-09, cis=1.3039e-08, toe=388800.0,
+    toc=388800.0, af0=1.8364e-04, af1=2.0464e-12, af2=0.0,
+    tgd=-7.4506e-09, iodc=23, iode=23, health=0, ura=0)
+
+
+def _static_scene(device, n_ms, seed=4):
+    """A capture and a VT start that need only the port: five SVs of the
+    broadcast set spread in longitude, seen from the scenario's position;
+    constant-dynamics signals at 2.5 MHz whose Doppler is the line-of-sight
+    rate the EKF will predict, so the filter starts near its fixed point.
+    Returns what `vt_scan` takes."""
+    from gps_sdr_tpu_torch.config import ReceiverConfig, SignalConfig
+    from gps_sdr_tpu_torch.geo.coords import llh2xyz
+    from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris, sv_pos_vel_clock
+    from gps_sdr_tpu_torch.io.synthetic import (SyntheticSV,
+                                                generate_if_samples,
+                                                quantize_iq)
+    cfg = ReceiverConfig(signal=SignalConfig(f_if=F_IF, fs=FS))
+    sig = cfg.signal
+    S = sig.samples_per_ms
+    rng = np.random.default_rng(seed)
+    prns = [3, 7, 16, 22, 27]
+    n = len(prns)
+    usr = llh2xyz(np.asarray(_STATIC_LLH)).numpy()
+    ephs = [dict(_STATIC_EPH, omega0=_STATIC_EPH["omega0"] + 0.5 * k,
+                 m0=_STATIC_EPH["m0"] + 0.3 * k) for k in range(n)]
+    eph_cpu = Ephemeris.stack(ephs, "cpu")
+    tt0 = np.full(n, _STATIC_TOW) + rng.uniform(0.0, 1e-3, n)
+    sv = sv_pos_vel_clock(eph_cpu, tt0)
+    los = sv["pos"].numpy() - usr
+    los /= np.linalg.norm(los, axis=1, keepdims=True)
+    dopp = -(los * sv["vel"].numpy()).sum(axis=1) * sig.fc / 299792458.0
+    delay = rng.uniform(0.0, S, n)
+    values = quantize_iq(generate_if_samples(
+        cfg, [SyntheticSV(prn=p, amplitude=3.0, doppler_hz=float(d),
+                          code_delay_samples=float(c))
+              for p, d, c in zip(prns, dopp, delay)],
+        n_ms + 8, noise_std=4.0, seed=seed, device=device))
+    f_code = sig.code_freq_basis * (1.0 + dopp / sig.fc)
+    ptr = np.ceil(delay).astype(np.int64)
+
+    def t(a, dtype=torch.float64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    params = tvt.VTParams()
+    state = tvt.VTState(
+        ptr=t(ptr, torch.int64), rem_chip=t((ptr - delay) * f_code / FS),
+        code_freq=t(f_code), carr_freq=t(F_IF + dopp),
+        carr_freq_basis=t(F_IF + dopp),
+        phase_fp=t(rng.integers(-2 ** 31, 2 ** 31, n), torch.int32),
+        pll_nco=t(np.zeros(n)), pll_last=t(np.zeros(n)),
+        transmit_time=t(tt0), predicted_pr_last=t(np.zeros(n)),
+        iono_m=t(np.zeros(n)), tropo_m=t(np.zeros(n)),
+        el_rad=t(np.full(n, np.pi / 4)), az_rad=t(np.zeros(n)),
+        total_state=t(np.concatenate([usr + [20.0, -15.0, 10.0],
+                                      np.zeros(3), [1.5e5, 0.0]])),
+        state_cov=t(1e2 * np.diag([0.1] * 6 + [1.0, 1.0])),
+        r_diag=t(np.concatenate([np.full(n, params.r_pr0),
+                                 np.full(n, params.r_prr0)])),
+        innov_sq_sum=t(np.zeros(2 * n)),
+        step_count=torch.tensor(0, dtype=torch.int32, device=device),
+        zk=t(np.zeros((n, params.cn0_window))),
+        snr_hist=t(np.full((n, 5), 99.0)), cn0=t(np.full(n, 99.0)),
+        valid=torch.ones(n, dtype=torch.bool, device=device))
+    blk = -(-(S + 256) // 128) * 128
+    raw = torch.from_numpy(values.reshape(-1, 2).copy()).to(device)
+    args = dict(chips=chip_tables(prns, device),
+                eph=Ephemeris.stack(ephs, device),
+                iono_alpha=cfg.cmn.iono_alpha, iono_beta=cfg.cmn.iono_beta,
+                params=params, fs=FS, blk=blk, f_if=F_IF, fc=sig.fc,
+                code_freq_basis=sig.code_freq_basis,
+                doy=cfg.cmn.day_of_year)
+    return raw, state, args
+
+
+def _list_and_stack_scan(raw, chunk_start, state, n_steps, chips, eph,
+                         iono_alpha, iono_beta, params, fs, blk, f_if, fc,
+                         code_freq_basis, doy):
+    """`vt_scan` as a scan over rebound values: the carry and the group
+    cache are rebound to each step's new tensors and the records are lists
+    stacked at the end; nothing is written in place."""
+    run = tvt._VTChunk(raw, chunk_start, state, chips, eph, iono_alpha,
+                       iono_beta, params, fs, blk, f_if, fc, code_freq_basis,
+                       doy)
+    rows, count, done = [], run.count0, 0
+    group = max(1, int(params.kepler_update_ms))
+    while done < n_steps:
+        n_group = min(group, n_steps - done)
+        new = run.refresh_values(run.atmosphere_due(count, n_group))
+        run.g = {k: new[k] for k in tvt._GROUP_FIELDS}
+        run.st = {**run.st, **{k: new[k] for k in tvt._ATMOSPHERE_FIELDS}}
+        for _ in range(n_group):
+            new, rec = run.step_values(
+                count == 0, (count + 1) % params.cn0_window == 0,
+                (count + 1) % params.r_update_ms == 0)
+            rows.append(rec)
+            run.st = {**run.st, **new}
+            run.row = run.row + 1
+            count += 1
+        done += n_group
+    recs = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    recs["fault"] = run.fault
+    return run.end_state(count), recs
+
+
+def _assert_same_scan(a, b):
+    (state_a, recs_a), (state_b, recs_b) = a, b
+    assert recs_a.keys() == recs_b.keys()
+    for k in recs_a:
+        assert recs_a[k].dtype == recs_b[k].dtype, k
+        assert torch.equal(recs_a[k], recs_b[k]), k
+    for k, v in state_a._asdict().items():
+        w = getattr(state_b, k)
+        assert v.dtype == w.dtype and torch.equal(v, w), k
+
+
+@pytest.mark.parametrize("r_update_ms", [200, 60])
+def test_vt_static_state_equals_list_and_stack(r_update_ms):
+    """The scan that updates fixed tensors in place and writes preallocated
+    records at a device row index gives, bit for bit, the records and the
+    end state of the scan that rebinds its carry and stacks lists: 230 ms
+    from step count 0 in two calls (130 + 100, so the second starts inside
+    a Kepler group's cadence and off the C/N0 window's), across eleven
+    C/N0 windows, the adaptive-R update (step 199, or every 60), five
+    refreshes of which three renew the atmosphere.  The caller's state is
+    not written."""
+    raw, state, args = _static_scene("cpu", 240)
+    args["params"] = dataclasses.replace(args["params"],
+                                         r_update_ms=r_update_ms)
+    keep = {k: v.clone() for k, v in state._asdict().items()}
+    got, want = [], []
+    for scan, out in ((tvt.vt_scan, got), (_list_and_stack_scan, want)):
+        st = state
+        for n_steps in (130, 100):
+            if scan is tvt.vt_scan:
+                st, rec = scan(raw, 0, st, n_steps=n_steps, **args)
+            else:
+                st, rec = scan(raw, 0, st, n_steps, **args)
+            cb.raise_on_fault(rec["fault"])
+            out.append((st, rec))
+    for a, b in zip(got, want):
+        _assert_same_scan(a, b)
+    for k, v in state._asdict().items():
+        assert torch.equal(v, keep[k]), k
+    end, rec = got[-1]
+    assert int(end.step_count) == 230 and rec["corr"].shape == (100, 5, 3, 2)
+    assert end.phase_fp.dtype == torch.int32
+    assert end.state_cov.dtype == torch.float32
+    first = got[0][1]
+    # the cadences did fire: the gate's C/N0 moved, R left its start values,
+    # the atmosphere was renewed; the loops hold the signals
+    assert len(torch.unique(first["cn0"][:, 0])) >= 5
+    r_all = torch.cat([first["r_diag"], rec["r_diag"]])
+    assert len(torch.unique(r_all[:, 0])) >= (2 if r_update_ms == 200 else 3)
+    assert len(torch.unique(first["el"][:, 0])) >= 2
+    assert bool(rec["valid"].all())
+    prompt = torch.hypot(rec["corr"][:, :, 1, 0], rec["corr"][:, :, 1, 1])
+    early = torch.hypot(rec["corr"][:, :, 0, 0], rec["corr"][:, :, 0, 1])
+    assert float(prompt.mean()) > 1.5 * float(early.mean())
+
+
+def test_vt_scan_refuses_graphs_on_the_cpu():
+    raw, state, args = _static_scene("cpu", 20)
+    with pytest.raises(ValueError, match="CUDA"):
+        tvt.vt_scan(raw, 0, state, n_steps=5, graph=True, **args)
+    _, rec = tvt.vt_scan(raw, 0, state, n_steps=0, **args)
+    assert list(rec) == ["fault"]
+
+
 # ------------------------------------------------------- (d) on the card
 
 
@@ -569,3 +749,75 @@ def test_cuda_bank_matches_plain():
                 cb.raise_on_fault(fault)
                 scale = float(ref.abs().mean())
                 assert float((out.cpu() - ref).abs().max()) < 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_cuda_bank_tap_counts_without_an_instance():
+    """1, 2 and 4 taps, which run the kernel instance that reads its tap
+    count at run time, over a block long enough for the widest CTA (10 ms
+    at 2.5 MHz), on one CTA per channel and split, through both entries:
+    the launch is accepted and gives the plain version's values.  Run on
+    the card as the test above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    n, blk, L = 3, 25088, 60000
+    vals = torch.from_numpy(rng.integers(-60, 60, (L, 2)).astype(np.int8))
+    prns = [3, 16, 27]
+    i64, f64_ = torch.int64, torch.float64
+    args = dict(
+        ptr_off=torch.tensor([0, 1701, L - blk], dtype=i64),
+        rem_chip=torch.tensor(rng.uniform(-0.5, 1.5, n), dtype=f64_),
+        code_freq=torch.tensor(1.023e6 + rng.uniform(-3, 3, n), dtype=f64_),
+        phase_fp=torch.tensor(rng.integers(-2 ** 31, 2 ** 31, n), dtype=i64),
+        carr_fp=torch.tensor(np.round((F_IF + rng.uniform(-5e3, 5e3, n))
+                                      / FS * 2.0 ** 32), dtype=i64),
+        num=torch.tensor([24999, 25001, 25003], dtype=i64))
+    on_card = [a.to(dev) for a in args.values()]
+    for ntaps in (1, 2, 4):
+        taps = np.linspace(-0.5, 0.5, ntaps)
+        ref, _ = cb.correlator_bank(
+            vals, *args.values(), chip_tables(prns, "cpu"),
+            cb.tap_offsets_fp(taps, "cpu"), FS, blk)
+        scale = float(ref.abs().mean())
+        chips, tap_fp = chip_tables(prns, dev), cb.tap_offsets_fp(taps, dev)
+        win = cb.cut_windows(vals.to(dev), on_card[0], blk)
+        for n_split in (1, 4, None):
+            out, fault = cb.correlator_bank(
+                vals.to(dev), *on_card, chips, tap_fp, FS, blk,
+                n_split=n_split)
+            same, fault_w = cb.correlator_bank_windows(
+                win, *on_card[1:], chips, tap_fp, FS, n_split=n_split)
+            cb.raise_on_fault(fault)
+            cb.raise_on_fault(fault_w)
+            assert torch.equal(out, same)
+            assert float((out.cpu() - ref).abs().max()) < 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_cuda_vt_graph_equals_eager():
+    """On the card, `vt_scan` replaying its captured graphs against the
+    same scan run eagerly: every record field and the end state equal
+    bit for bit over 230 ms in two calls (as the CPU test above), and the
+    bank launches counted once per ms either way.  Run on the card with
+        python -m pytest --noconftest -p no:cacheprovider -m gpu \\
+            tests/test_torch_vt.py
+    """
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    raw, state, args = _static_scene(torch.device("cuda"), 240)
+    out = {}
+    for graph in (False, True):
+        st, runs = state, []
+        before = cb.correlator_bank.launches
+        for n_steps in (130, 100):
+            st, rec = tvt.vt_scan(raw, 0, st, n_steps=n_steps, graph=graph,
+                                  **args)
+            cb.raise_on_fault(rec["fault"])
+            runs.append((st, rec))
+        assert cb.correlator_bank.launches == before + 230
+        out[graph] = runs
+    for a, b in zip(out[True], out[False]):
+        _assert_same_scan(a, b)
+    assert bool(torch.isfinite(out[True][-1][1]["total_state"]).all())
