@@ -22,9 +22,11 @@ Phases, each printing one line of evidence:
      length; the fault flag for a window past the chunk; times of the
      kernel (as split over CTAs and on one CTA per channel), of the plain
      version and of an empty launch; the prepared launch (BankPlan) bit for
-     bit against correlator_bank, for 4, 8 and 12 channels and for 1, 2 and
-     4 taps (the instance that reads its tap count at run time), its time
-     in a replayed graph and called eagerly, and its fault flag.
+     bit against correlator_bank, for 4, 8, 12 and 32 channels (32: the
+     VDFLL at the reference's full channel count, 4 parts a channel) and
+     for 1, 2 and 4 taps (the instance that reads its tap count at run
+     time), its time in a replayed graph and called eagerly, and its fault
+     flag.
    - correlator_bank_windows (phase 2c): the bank over windows already cut
      out, at 3 taps and the 25-tap CT-POS grid, blocks of 1 ms and 10 ms,
      with and without DC removal, on 1 CTA per channel and the default
@@ -44,12 +46,21 @@ Phases, each printing one line of evidence:
    both kernels' launches counted; then 200 ms of vt_scan from the VT
    stage's own start, run eagerly and replayed as CUDA graphs: every
    record field and the end state equal bit for bit, ms per step of each.
+   Then the legacy position filter (solu.mode == 1): ct_position_kf(3000)
+   on the same Receiver, its track_chunk launches counted on their own,
+   and position() under a mode-1 config, served from its artifacts; then
+   export_mat with the VT chain, which launches nothing, every file read
+   back through io/matref equal to the results in memory.
 4. The reference's 10 ms schedules on the same capture, a second Receiver
    with its own artifact directory: acquisition →
    track_for_eph_reference (500 ms at 1 ms, re-track, 40000 ms at 10 ms
    negated) → decode(1000) → usable_svs → ct_position(3000 rows with the
    per-channel pdi 1 → 10 ms switch), held against phase 3's ephemerides,
-   with all three kernels' launches counted.
+   with all three kernels' launches counted; then export_mat of the
+   switched CT stage (tckRstCT_10ms_*, the pdi rows of the 1 → 10 switch).
+
+Receiver.report (the plots) is not run here: it needs matplotlib, which the
+GPU machine does not have; the CPU tests run it.
 
 Then one JSON line on the kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (exit code ≠ 0).
@@ -83,6 +94,7 @@ from gps_sdr_tpu_torch.config import (CommonConfig, FileConfig,
 from gps_sdr_tpu_torch.geo.coords import llh2xyz
 from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris, sv_pos_vel_clock
 from gps_sdr_tpu_torch.io.ifdata import DeviceStager, IFSampleSource
+from gps_sdr_tpu_torch.io import matref
 from gps_sdr_tpu_torch.io.synthetic import (GeometrySignal, GeometrySV,
                                             SyntheticSV, generate_if_samples,
                                             quantize_iq)
@@ -91,6 +103,7 @@ from gps_sdr_tpu_torch.ops import corr_bank as cb
 from gps_sdr_tpu_torch.ops import track_chunk as tc
 from gps_sdr_tpu_torch.pipeline import Receiver, detect_bit_transition
 from gps_sdr_tpu_torch.receiver import vt as tvt
+from gps_sdr_tpu_torch.receiver.ct_legacy import NavSolutionsKF
 from gps_sdr_tpu_torch.receiver.vt import VTParams
 from gps_sdr_tpu_torch.tracking import (TrackParams, chip_tables,
                                         init_track_state, run_tracking)
@@ -609,11 +622,11 @@ def phase_bank_vs_plain(dev: torch.device, shared: dict) -> dict:
     res["n_split"] = cb.default_split(n, blk)
     res["threads"] = {f"{t}taps": cb.default_threads(t, res["n_split"], blk)
                       for t in (3, 29)}
-    # other channel counts than the workload's 8: the first 4, and 12 (the
-    # 8 and the first 4 again, their windows 1000 samples on)
+    # other channel counts than the workload's 8: the first 4, 12 and 32
+    # (the 8 again and again, each repeat's windows 1000 samples on)
     tap_fp = cb.tap_offsets_fp(epl, dev)
     res["channels"] = {}
-    for count in (4, 12):
+    for count in (4, 12, 32):
         idx = torch.arange(count, device=dev) % n
         nco = {k: v[idx].contiguous() for k, v in locked.items()}
         nco["ptr"] = nco["ptr"] + 1000 * (torch.arange(count, device=dev)
@@ -630,9 +643,10 @@ def phase_bank_vs_plain(dev: torch.device, shared: dict) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"{count} channels: the prepared launch "
                                  "differs from the plain version")
+        ms = timed_graph_ms(lambda: plan(*words), 10)
         res["channels"][str(count)] = dict(
             bitwise=True, n_split=cb.default_split(count, blk),
-            kernel_ms=timed_graph_ms(lambda: plan(*words), 10))
+            kernel_ms=ms, kernel_us=ms * 1e3)
     # tap counts without an instance of their own, on one CTA per channel
     # and as split: the most threads a CTA of theirs may have
     res["other_tap_counts"] = {}
@@ -1095,6 +1109,147 @@ def profile_vt(first: FirstScan, n_ms: int = 100) -> None:
     evidence("vt_profile", n_ms=n_ms, **res)
 
 
+def kernel_launches() -> tuple:
+    """(track_chunk, correlator_bank_windows, correlator_bank) counts."""
+    return (tc.track_chunk.launches, cb.correlator_bank_windows.launches,
+            cb.correlator_bank.launches)
+
+
+def zero_launches() -> None:
+    tc.track_chunk.launches = 0
+    cb.correlator_bank_windows.launches = 0
+    cb.correlator_bank.launches = 0
+
+
+def legacy_filter(rx: Receiver, usr: np.ndarray) -> dict:
+    """The legacy position filter (solu.mode == 1) on phase 3's Receiver:
+    ct_position_kf(CT_MS) tracks the usable SVs again (one track_chunk
+    launch a 1000 ms chunk) and runs the 8-state filter over relative
+    pseudoranges from the truth position; then a Receiver with a mode-1
+    config on the same directory answers position() from the artifacts,
+    launching nothing."""
+    zero_launches()
+    t0 = time.perf_counter()
+    rec, nav = rx.ct_position_kf(n_ms=CT_MS, init_pos_ecef=usr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    want = (-(-CT_MS // 1000), 0, 0)
+    if launches != want:
+        raise AssertionError(f"ct_position_kf launched (track_chunk, windows "
+                             f"bank, fetching bank) {launches}, expected "
+                             f"{want}")
+    if not isinstance(nav, NavSolutionsKF) or len(nav.usr_pos) == 0 \
+            or not all(np.all(np.isfinite(np.asarray(v)))
+                       for v in vars(nav).values()):
+        raise AssertionError("no finite legacy-filter fixes")
+    err = np.linalg.norm(nav.usr_pos - usr, axis=1)
+    med = float(np.median(err))
+    if med >= WLS_GATE_M:
+        raise AssertionError(f"legacy filter median error {med:.1f} m >= "
+                             f"{WLS_GATE_M}")
+    # the common 75 ms-base offset of the relative pseudoranges is in the
+    # clock state (tests/test_legacy_components.py)
+    clk = float(nav.clk_bias_m[-1])
+    if not 1e5 < abs(clk) < 3e6:
+        raise AssertionError(f"clock state {clk:.0f} m does not hold the "
+                             "75 ms-base offset")
+    cfg1 = dataclasses.replace(rx.cfg, solu=dataclasses.replace(
+        rx.cfg.solu, mode=1))
+    zero_launches()
+    _, nav1 = Receiver(cfg1, rx.source, artifact_dir=rx.dir,
+                       device=rx.device).position(n_ms=CT_MS,
+                                                  init_pos_ecef=usr)
+    if kernel_launches() != (0, 0, 0) or not np.array_equal(nav1.usr_pos,
+                                                            nav.usr_pos):
+        raise AssertionError(f"position() under mode 1 launched "
+                             f"{kernel_launches()} or differs from "
+                             "ct_position_kf")
+    res = dict(stage_s=wall, epochs=int(len(err)), track_chunk_launches=
+               launches[0], median_err_m=med, max_err_m=float(np.max(err)),
+               clk_bias_m_last=clk, mode1_position_launches=0)
+    evidence("ct_position_kf", **res)
+    return res
+
+
+def _equal_fields(loaded, ref, fields, what) -> None:
+    for f in fields:
+        if not np.array_equal(getattr(loaded, f), getattr(ref, f)):
+            raise AssertionError(f"{what}: {f} read back differs")
+
+
+def export_and_reload(rx: Receiver, out: str, ct_kw: dict,
+                      vt_kw: dict | None) -> dict:
+    """Receiver.export_mat (with the VT chain when `vt_kw` is given) from
+    the stage artifacts: no kernel launches; every file read back through
+    io/matref equal to what the stages return from memory."""
+    zero_launches()
+    t0 = time.perf_counter()
+    rx.export_mat(out, ct_kw=ct_kw, vt=vt_kw is not None, vt_kw=vt_kw)
+    wall = time.perf_counter() - t0
+    if kernel_launches() != (0, 0, 0):
+        raise AssertionError(f"export_mat launched {kernel_launches()}")
+    cfg, name = rx.cfg, rx.cfg.file.name
+    S, bps = cfg.signal.samples_per_ms, cfg.file.bytes_per_sample
+    prns = rx.usable_svs()
+    eph, sbf = rx.decode()
+    acq = rx.acquisition()
+    rec, nav = rx.ct_position(**ct_kw)
+    pdi_rows, _ = matref.pdi_from_block_sizes(rec.num_sample, S)
+    tag = int(pdi_rows.max())
+    files = sorted(os.listdir(out))
+    want = sorted([f"nAcquired_{name}_{cfg.file.skip_ms}.mat",
+                   f"eph_{name}.mat", f"sbf_{name}.mat",
+                   f"tckRstCT_{tag}ms_{name}.mat",
+                   f"navSolCT_{tag}ms_{name}.mat"]
+                  + ([f"tckRstVT_{name}_updated.mat",
+                      f"navSolVT_{name}_updated.mat"] if vt_kw else []))
+    if files != want:
+        raise AssertionError(f"export_mat wrote {files}, expected {want}")
+    path = lambda f: os.path.join(out, f)
+    got, got_pdi = matref.load_tck_records(
+        path(f"tckRstCT_{tag}ms_{name}.mat"), prns, bytes_per_sample=bps,
+        samples_per_ms=S)
+    _equal_fields(got, rec, tracking._REC_FIELDS, "tckRstCT")
+    if not np.array_equal(got_pdi, pdi_rows):
+        raise AssertionError("tckRstCT: pdi rows differ")
+    _equal_fields(matref.load_navsol(path(f"navSolCT_{tag}ms_{name}.mat")),
+                  nav, ("usr_pos", "usr_vel", "clk_bias_m", "transmit_time",
+                        "raw_pseudorange", "local_time"), "navSolCT")
+    loaded = matref.load_eph(path(f"eph_{name}.mat"))
+    decoded = [p for p, r in eph.items() if r.tow or r.updateflag]
+    if sorted(loaded) != sorted(decoded) or any(
+            dataclasses.asdict(loaded[p]) != dataclasses.asdict(eph[p])
+            for p in decoded):
+        raise AssertionError("eph read back differs")
+    nav1 = matref.load_sbf(path(f"sbf_{name}.mat"))["nav1"]
+    na = matref.load_nacquired(
+        path(f"nAcquired_{name}_{cfg.file.skip_ms}.mat"))
+    ch = [acq.channel_index(p) for p in prns]
+    if any(nav1[p] != sbf["nav1"][p] for p in prns) \
+            or list(na["sv"]) != list(prns) \
+            or not np.array_equal(na["code_delay"], acq.code_delay[ch]):
+        raise AssertionError("sbf / nAcquired read back differ")
+    res = dict(export_s=wall, files=files, pdi_tag_ms=tag, launches=0,
+               reloads_equal=True)
+    if vt_kw:
+        trk, sol = rx.vt_position(**vt_kw)
+        got_trk, cn0 = matref.load_vt_records(
+            path(f"tckRstVT_{name}_updated.mat"), prns, bytes_per_sample=bps)
+        _equal_fields(got_trk, trk, ("corr", "carr_err", "code_err",
+                                     "code_freq", "carr_freq", "delta_pr",
+                                     "absolute_sample", "sv_vel", "rem_chip",
+                                     "rem_phase", "carr_nco"), "tckRstVT")
+        g = matref.load_navsol_vt(path(f"navSolVT_{name}_updated.mat"))
+        if not (np.array_equal(g["usrPos"], sol.usr_pos)
+                and np.array_equal(g["kalman_gain"],
+                                   np.transpose(sol.kalman_gain, (1, 2, 0)))):
+            raise AssertionError("navSolVT read back differs")
+        res["cn0_vt_rows"] = int(cn0.shape[0])
+    res["pdi_rows"] = pdi_rows
+    return res
+
+
 def phase_main_path(dev: torch.device, workdir: str,
                     with_profile: bool = False) -> dict:
     cfg = cfg_e2e()
@@ -1154,6 +1309,12 @@ def phase_main_path(dev: torch.device, workdir: str,
     if with_profile:
         profile_vt(first_scan)
     del first_scan
+    kf_res = legacy_filter(rx, usr)
+    exp = export_and_reload(
+        rx, os.path.join(workdir, "mat"), dict(n_ms=CT_MS, init_pos_ecef=usr),
+        dict(n_ms=VT_MS, ct_n_ms=CT_MS, init_pos_ecef=usr))
+    exp.pop("pdi_rows")
+    evidence("export_mat", path="phase 3", **exp)
 
     missing = sorted(set(PRNS) - set(int(p) for p in acq.sv))
     if missing:
@@ -1197,6 +1358,8 @@ def phase_main_path(dev: torch.device, workdir: str,
     if vt_med >= WLS_GATE_M:
         raise AssertionError(f"VT median error {vt_med:.1f} m >= "
                              f"{WLS_GATE_M}")
+    stages["ct_kf_s"] = kf_res["stage_s"]
+    stages["export_mat_s"] = exp["export_s"]
     res = dict(
         capture_s=CAPTURE_MS / 1000, synth_s=gen_s, stages=stages,
         acquired=[int(p) for p in acq.sv],
@@ -1277,23 +1440,17 @@ def phase_reference_schedules(dev: torch.device, workdir: str,
         stages[name] = time.perf_counter() - t
         return out
 
-    def counts():
-        return (tc.track_chunk.launches, cb.correlator_bank_windows.launches,
-                cb.correlator_bank.launches)
-
-    tc.track_chunk.launches = 0
-    cb.correlator_bank.launches = 0
-    cb.correlator_bank_windows.launches = 0
+    zero_launches()
     acq = stage("acquisition_s", rx.acquisition)
     rec = stage("eph_reference_s", lambda: rx.track_for_eph_reference(
         min_transition_index=REF_MIN_TRANSITION))
-    eph_counts = counts()
+    eph_counts = kernel_launches()
     eph, _ = stage("decode_s",
                    lambda: rx.decode(start_offset_ms=DECODE_OFFSET_MS))
     usable = stage("usable_svs_s", rx.usable_svs)
     ct_rec, nav = stage("ct_switch_wls_s", lambda: rx.ct_position(
         n_ms=REF_CT_ROWS, init_pos_ecef=usr))
-    chunk_launches, windows_launches, bank_launches = counts()
+    chunk_launches, windows_launches, bank_launches = kernel_launches()
 
     n_ch = len(acq.sv)
     if sorted(int(p) for p in acq.sv) != sorted(PRNS):
@@ -1382,6 +1539,14 @@ def phase_reference_schedules(dev: torch.device, workdir: str,
         * 1e3,
         blocks_of_10ms=n10_blocks)
     evidence("reference_schedules", **res)
+    # the switched CT stage as the reference's tckRstCT_10ms_* file
+    exp = export_and_reload(rx, os.path.join(workdir, "mat"),
+                            dict(n_ms=REF_CT_ROWS, init_pos_ecef=usr), None)
+    if exp["pdi_tag_ms"] != 10 or not np.array_equal(exp.pop("pdi_rows"),
+                                                     pdi_rows):
+        raise AssertionError("export_mat: the switched CT record is not "
+                             "tagged 10 ms or its pdi rows differ")
+    evidence("export_mat", path="phase 4", **exp)
     return res
 
 

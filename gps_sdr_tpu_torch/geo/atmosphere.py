@@ -1,5 +1,6 @@
 """Atmospheric delay models, torch float64: Klobuchar ionosphere + UNB3
-troposphere.
+troposphere, and the reference's two unused alternates (Hopfield
+troposphere, IGS TEC-grid ionosphere).
 
 Equivalents of the reference's `geo/ionocorr.m` (GPSoft 8-coefficient
 broadcast Klobuchar) and `geo/trop_UNB3.m` + `Get_UNB3_Model.m` +
@@ -116,6 +117,16 @@ def _unb3_surface(doy: torch.Tensor, lat_deg: torch.Tensor,
     return t, t0, p, wvp, beta, lam
 
 
+def tropo_hopfield_delay(el_deg, h_m=0.0) -> torch.Tensor:
+    """Hopfield dry-component troposphere [m] (geo/tropocorr.m), the unused
+    alternate model the reference ships."""
+    el = torch.deg2rad(f64(el_deg))
+    p = 1013.25 * (1.0 - 2.2557e-5 * h_m) ** 5.2568
+    t = 288.15 - 6.5e-3 * h_m
+    kd = 1.55208e-4 * p * (40136.0 + 148.72 * (t - 273.16)) / t
+    return kd / torch.sin(torch.sqrt(el * el + 1.904e-3))
+
+
 def tropo_unb3_delay(doy, lat_deg, alt_m, el_deg) -> torch.Tensor:
     """UNB3 tropospheric delay [m]: Saastamoinen zenith × Black & Eisner
     map (trop_UNB3.m: the dry map reused for wet)."""
@@ -131,3 +142,33 @@ def tropo_unb3_delay(doy, lat_deg, alt_m, el_deg) -> torch.Tensor:
     cos_el = torch.cos(torch.deg2rad(el_deg))
     m_dry = 1.0 / torch.sqrt(1.0 - cos_el * cos_el / 1.002001)
     return k_dry * m_dry + k_wet * m_dry
+
+
+def igs_tec_slant_delay(time_user_s, user_lat_deg, user_lon_deg, el_rad,
+                        grid_tecu_early, grid_tecu_late,
+                        time_early_s, time_late_s,
+                        corner_sw=(22.5, 120.0), d_lat=2.5, d_lon=5.0,
+                        shell_h_km=450.0, f_hz=1575.42e6) -> torch.Tensor:
+    """IGS TEC-grid ionospheric slant delay [m], the reference's unused
+    alternate model `geo/igs_iono.m`.
+
+    `grid_tecu_early/late` are the 4 corner vertical-TEC values [TECU] at
+    `time_early_s`/`time_late_s`, ordered (SW, SE, NE, NW) around the cell
+    whose south-west corner is `corner_sw` (igs_iono.m:10-25 hard-codes one
+    capture's).  Linear in time (:27-30), bilinear in the cell, thin-shell
+    obliquity sec(asin(Re/(Re+h)·cos el)) (:44), vertical delay
+    40.3/f²·TEC (:45).  The model those lines intend, without the reference
+    file's transcription slips (a shadowed corner at :16-17, missing
+    parentheses at :35-36, a stray cos/`*1-1` at :39, :45).
+    """
+    w = (f64(time_user_s) - time_early_s) / (time_late_s - time_early_s)
+    tec4 = (1.0 - w) * f64(grid_tecu_early) + w * f64(grid_tecu_late)
+    sw, se, ne, nw = tec4[0], tec4[1], tec4[2], tec4[3]
+    p = (f64(user_lat_deg) - corner_sw[0]) / d_lat
+    q = (f64(user_lon_deg) - corner_sw[1]) / d_lon
+    tec = ((1 - p) * (1 - q) * sw + (1 - p) * q * se
+           + p * q * ne + p * (1 - q) * nw)
+    re_km = 6378.137
+    obliq = 1.0 / torch.cos(torch.arcsin(
+        re_km / (re_km + shell_h_km) * torch.cos(f64(el_rad))))
+    return obliq * (40.3 / (f_hz * f_hz) * tec * 1e16)

@@ -1,7 +1,7 @@
 """WGS-84 coordinate transforms (ECEF ↔ LLH ↔ local ENU), torch float64.
 
 Equivalents of the reference's `geo/xyz2llh.m` (Kaplan's closed form),
-`geo/llh2xyz.m` and `geo/xyz2enu.m`.  Inputs may be tensors or array-likes;
+`geo/llh2xyz.m`, `geo/xyz2enu.m` and `geo/enu2xyz.m`.  Inputs may be tensors or array-likes;
 they batch over leading axes and stay on the input's device.
 """
 
@@ -85,6 +85,14 @@ def xyz2enu(xyz, org_xyz) -> torch.Tensor:
     org = f64(org_xyz, xyz.device)
     R = enu_rotation(xyz2llh(org))
     return torch.einsum("...ij,...j->...i", R, xyz - org)
+
+
+def enu2xyz(enu, org_xyz) -> torch.Tensor:
+    """ENU relative to an ECEF origin → ECEF point (geo/enu2xyz.m)."""
+    enu = f64(enu)
+    org = f64(org_xyz, enu.device)
+    R = enu_rotation(xyz2llh(org))
+    return org + torch.einsum("...ji,...j->...i", R, enu)
 
 
 def elevation_azimuth(sv_xyz, usr_xyz):

@@ -154,3 +154,18 @@ class DeviceStager:
         self._events[i] = ev
         return out
 
+
+
+def write_if_file(path: str, iq: np.ndarray, file_cfg: FileConfig) -> None:
+    """Write complex samples as an interleaved capture file (int8 or int16
+    by `file_cfg.data_precision`; real part only when data_type = 1)."""
+    dtype = np.int8 if file_cfg.data_precision == 1 else np.int16
+    info = np.iinfo(dtype)
+    iq = np.asarray(iq)
+    if file_cfg.data_type == 2:
+        vals = np.empty(2 * iq.size, dtype=np.float64)
+        vals[0::2] = iq.real
+        vals[1::2] = iq.imag
+    else:
+        vals = iq.real.astype(np.float64)
+    np.clip(np.round(vals), info.min, info.max).astype(dtype).tofile(path)

@@ -4,18 +4,23 @@ Equivalent of the reference driver `SDR_main.m` on the main path:
 acquisition → eph tracking → nav decode → usable-SV filter → CT-POS
 tracking + WLS, every stage output checkpointed in the caller's
 `artifact_dir` and skipped when the artifact already exists
-(SDR_main.m:21-27,34-61).  Artifacts carry the JAX package's stems and
-schemas; every write is atomic (temp file, then `os.replace`), so an
-interrupted or concurrent run never leaves a truncated artifact behind.
+(SDR_main.m:21-27,34-61); then the legacy position filter (mode 1), the
+reference's `.mat` artifact chain and the result plots.  Artifacts carry
+the JAX package's stems and schemas; every write is atomic (temp file,
+then `os.replace`), so an interrupted or concurrent run never leaves a
+truncated artifact behind.  Pickles carry the port's tag: the port loads
+only the pickles it wrote itself.
 """
 
 from __future__ import annotations
 
+import glob
 import hashlib
 import os
 import pickle
+import pickletools
 import tempfile
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -27,12 +32,18 @@ from gps_sdr_tpu_torch.geo.coords import llh2xyz
 from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris
 from gps_sdr_tpu_torch.io.ifdata import IFSampleSource
 from gps_sdr_tpu_torch.receiver.ct import NavSolutions, run_ct_positioning
+from gps_sdr_tpu_torch.receiver.ct_legacy import run_ct_positioning_kf
 from gps_sdr_tpu_torch.receiver.vt import (VTParams, init_vt_state,
                                            run_vector_tracking)
 from gps_sdr_tpu_torch.tracking import (_REC_FIELDS, TrackParams,
                                         TrackRecords, init_track_state,
                                         run_tracking, state_from_records)
 from gps_sdr_tpu_torch.utils.device import resolve_device
+from gps_sdr_tpu_torch.utils.metrics import cn0_series
+
+# written ahead of every pickle the Receiver saves; a pickle without it was
+# not written by this package and is not unpickled
+PICKLE_TAG = b"gps_sdr_tpu_torch artifact pickle 1\n"
 
 
 def detect_bit_transition(p_i: np.ndarray, min_index: int = 600) -> int:
@@ -48,6 +59,23 @@ def detect_bit_transition(p_i: np.ndarray, min_index: int = 600) -> int:
         if np.all(s[i - 6:i] != s[i]) and np.all(s[i + 1:i + 18] == s[i]):
             return int((i + 1) % 20 - 1)
     return 0
+
+
+def _pickle_writer(data: bytes) -> str:
+    """The package of the first class a pickle names, read from its opcodes
+    without unpickling anything."""
+    strings = []
+    try:
+        for op, arg, _ in pickletools.genops(data):
+            if op.name in ("GLOBAL", "INST"):
+                return arg.split()[0].split(".")[0]
+            if op.name == "STACK_GLOBAL" and len(strings) >= 2:
+                return strings[-2].split(".")[0]
+            if isinstance(arg, str):
+                strings.append(arg)
+    except ValueError:
+        pass
+    return "an unknown writer"
 
 
 def _atomic_write(path: str, write) -> None:
@@ -79,7 +107,16 @@ class Receiver:
       eph_{name}.pkl                {prn: EphemerisRecord} + sbf{nav1,sfb1}
       nacquired_{name}_{skip}.npz   acquisition fields of the usable SVs
       tckct_{key}.npz / navct_{key}.pkl   CT-POS records + WLS solutions
+      tckct_kf_{key}.npz / navct_kf_{key}.pkl   the legacy filter's
+                                    records + NavSolutionsKF (mode 1)
       navvt2_{key}.pkl              (VTTrackRecords, VTSolutions)
+
+    Every .pkl starts with `PICKLE_TAG`, then the pickle.  `_load_pickle`
+    refuses a file without the tag (the JAX package's pickles under the
+    same stems, and the untagged ones of the port's first versions) and
+    names the package that wrote it, before unpickling anything.
+    `decode` and `countinx` read the eph record on disk whichever schedule
+    wrote it, and track only when there is none.
     """
 
     def __init__(self, cfg: ReceiverConfig, source: IFSampleSource,
@@ -109,12 +146,25 @@ class Receiver:
 
     def _save_pickle(self, stem: str, obj) -> None:
         if self.dir:
-            _atomic_write(self._path(stem), lambda f: pickle.dump(obj, f))
+            def write(f):
+                f.write(PICKLE_TAG)
+                pickle.dump(obj, f)
+            _atomic_write(self._path(stem), write)
 
     def _load_pickle(self, stem: str):
-        # artifacts this receiver wrote itself into the caller's directory
-        with open(self._path(stem), "rb") as f:
-            return pickle.load(f)
+        path = self._path(stem)
+        with open(path, "rb") as f:
+            data = f.read()
+        if not data.startswith(PICKLE_TAG):
+            writer = _pickle_writer(data)
+            raise ValueError(
+                f"{path}: this pickle was written by {writer}, without the "
+                "gps_sdr_tpu_torch tag; it is not this package's artifact "
+                "and is not loaded (the JAX package gps_sdr_tpu writes its "
+                "own pickles under the same stems, and the port's early "
+                "versions wrote untagged ones) — give this Receiver an "
+                "artifact_dir of its own")
+        return pickle.loads(data[len(PICKLE_TAG):])
 
     def _save_records(self, stem: str, rec: TrackRecords) -> None:
         self._save_npz(stem, i_early=rec.i_early, i_prompt=rec.i_prompt,
@@ -199,8 +249,7 @@ class Receiver:
         if self._eph_records is not None:
             return self._eph_records
         n1, n10 = cfg.track.ms_eph_1ms, cfg.track.ms_eph_10ms
-        stem = (f"tckeph_ref_{cfg.file.name}_{n1}_{n10}"
-                f"_{min_transition_index}.npz")
+        stem = f"{self._ref_prefix()}{min_transition_index}.npz"
         if self._have(stem):
             self._eph_records = self._load_records(stem)
             return self._eph_records
@@ -258,6 +307,40 @@ class Receiver:
         self._save_records(stem, self._eph_records)
         return self._eph_records
 
+    def _ref_prefix(self) -> str:
+        """Stem of the reference schedule's records, up to the
+        min_transition_index that ends it."""
+        t = self.cfg.track
+        return (f"tckeph_ref_{self.cfg.file.name}"
+                f"_{t.ms_eph_1ms}_{t.ms_eph_10ms}_")
+
+    def _decode_records(self) -> TrackRecords:
+        """The eph record `decode` and `countinx` read: this Receiver's
+        own, else the one on disk, whichever schedule wrote it
+        (`tckeph_{name}.npz` or `tckeph_ref_…`); the plain schedule is
+        tracked only when there is none.  Two records on disk and none
+        built here is ambiguous and raises."""
+        if self._eph_records is not None:
+            return self._eph_records
+        stems = [s for s in [f"tckeph_{self.cfg.file.name}.npz"]
+                 if self._have(s)]
+        if self.dir:
+            prefix = self._ref_prefix()
+            stems += sorted(
+                os.path.basename(p) for p in glob.glob(
+                    os.path.join(glob.escape(self.dir), prefix + "*.npz"))
+                if os.path.basename(p)[len(prefix):-4].isdigit())
+        if len(stems) > 1:
+            raise RuntimeError(
+                f"{self.dir} holds eph records of more than one schedule "
+                f"({', '.join(stems)}) and this Receiver built neither: call "
+                "track_for_eph() or track_for_eph_reference() first to say "
+                "which one to decode")
+        if stems:
+            self._eph_records = self._load_records(stems[0])
+            return self._eph_records
+        return self.track_for_eph()
+
     def countinx(self, min_transition_index: int = 600) -> np.ndarray:
         """Per-channel first-bit-transition offsets, ordered like acq.sv
         (the reference persists these as countinx.mat, trackingCT.m:530)."""
@@ -265,7 +348,7 @@ class Receiver:
         stem = f"countinx_{self.cfg.file.name}.npz"
         if self._have(stem):
             return np.load(self._path(stem))["countinx"]
-        rec = self.track_for_eph()
+        rec = self._decode_records()
         cnt = np.array([detect_bit_transition(
             rec.p_i[:, ch], min_index=min_transition_index)
             for ch in range(len(acq.sv))])
@@ -281,7 +364,7 @@ class Receiver:
             self._eph, self._sbf = self._load_pickle(stem)
             return self._eph, self._sbf
         acq = self.acquisition()
-        rec = self.track_for_eph()
+        rec = self._decode_records()
         streams = {int(p): rec.p_i[:, ch] for ch, p in enumerate(acq.sv)}
         self._eph, self._sbf = navdecode.decode_all(streams, start_offset_ms)
         self._save_pickle(stem, (self._eph, self._sbf))
@@ -401,13 +484,50 @@ class Receiver:
         self._save_pickle(stem_n, nav)
         return rec, nav
 
+    def ct_position_kf(self, n_ms: Optional[int] = None,
+                       init_pos_ecef: Optional[np.ndarray] = None,
+                       epoch_ms: Optional[int] = None,
+                       chunk_ms: int = 1000):
+        """The legacy stage (trackingCT_POS.m, `solu.mode == 1`): 1 ms
+        CT-POS E/P/L tracking of the usable SVs (`track_chunk`, one launch
+        a chunk on the card), then the per-epoch position-domain 8-state
+        EKF over relative pseudoranges (receiver/ct_legacy.py).  Returns
+        (TrackRecords, NavSolutionsKF)."""
+        cfg = self.cfg
+        n_ms = n_ms or cfg.track.ms_ct_pos
+        key = (f"kf_{cfg.file.name}_{n_ms}_{epoch_ms or 'def'}"
+               f"_{self._init_token(init_pos_ecef)}")
+        stem_t, stem_n = f"tckct_{key}.npz", f"navct_{key}.pkl"
+        eph, sbf = self.decode()
+        pos_svs = self.usable_svs()
+        if len(pos_svs) < 4:
+            raise ValueError(f"only {len(pos_svs)} usable SVs ({pos_svs}); "
+                             "positioning needs >= 4")
+        acq = self.acquisition()
+        if init_pos_ecef is None:
+            init_pos_ecef = llh2xyz(np.asarray(cfg.solu.truth_llh)).numpy()
+        if self._have(stem_t) and self._have(stem_n):
+            return self._load_records(stem_t), self._load_pickle(stem_n)
+        chans = [acq.channel_index(p) for p in pos_svs]
+        state = init_track_state(cfg, acq.code_delay[chans],
+                                 acq.fine_freq_hz[chans], self.device)
+        rec, _ = run_tracking(self.source, cfg, pos_svs, state,
+                              TrackParams.pos_epl(cfg), n_ms,
+                              chunk_ms=chunk_ms)
+        nav = run_ct_positioning_kf(rec, cfg, pos_svs, eph, sbf,
+                                    init_pos_ecef, epoch_ms=epoch_ms)
+        self._save_records(stem_t, rec)
+        self._save_pickle(stem_n, nav)
+        return rec, nav
+
     def _vt_stem(self, n_ms: Optional[int] = None,
                  ct_n_ms: Optional[int] = None,
                  init_pos_ecef: Optional[np.ndarray] = None,
                  multicorr: Optional[bool] = None,
                  replica: str = "auto", **_ignored) -> str:
         """Artifact stem of a vt_position result for the given kwargs (the
-        JAX package's; `replica` only names the artifact there and here)."""
+        JAX package's; `replica` only names the artifact there and here),
+        shared by vt_position's cache and export_mat's has-VT-run check."""
         cfg = self.cfg
         if multicorr is None:
             multicorr = cfg.cmn.multicorr_vt
@@ -484,13 +604,106 @@ class Receiver:
 
     def position(self, **kw):
         """Mode dispatch (SDR_main.m:73-121 on solu.mode / cmn.vtEnable):
-        mode 0 → WLS (CT) solutions; mode 2 (with cmn.vt_enable) → VT/EKF
-        warm-started from CT.  Mode 1, the legacy position-domain EKF
-        (`ct_position_kf`), is not ported yet."""
+        mode 0 → WLS (CT) solutions; mode 1 → the legacy position-domain
+        EKF over relative pseudoranges (`ct_position_kf`); mode 2 (with
+        cmn.vt_enable) → VT/EKF warm-started from CT."""
         if self.cfg.solu.mode == 2 and self.cfg.cmn.vt_enable:
             return self.vt_position(**kw)
         if self.cfg.solu.mode == 1:
-            raise NotImplementedError(
-                "solu.mode == 1 (the legacy position-domain EKF, "
-                "ct_position_kf) is not ported yet")
+            return self.ct_position_kf(**kw)
         return self.ct_position(**kw)
+
+    def export_mat(self, out_dir: str, ct_kw: Optional[Dict] = None,
+                   vt: Optional[bool] = None,
+                   vt_kw: Optional[Dict] = None) -> None:
+        """Write the stage artifacts as MATLAB `.mat` files in the
+        reference's schemas (SDR_main.m's chain: nAcquired / eph / sbf /
+        tckRstCT / navSolCT, plus tckRstVT / navSolVT when the VT stage
+        runs, trackingVT_POS_updated.m:532-533), so reference users keep
+        their MATLAB tooling; `io/matref` loads them back.
+
+        `vt`: None (default) exports the VT chain when the configured mode
+        runs VT (solu.mode == 2 with cmn.vt_enable, SDR_main.m:73) and the
+        VT stage has already run for `vt_kw` (its artifact is on disk), so
+        a CT export never starts vector tracking by itself; True exports it
+        (running the stage if needed); False skips it."""
+        from gps_sdr_tpu_torch.io import matref
+
+        os.makedirs(out_dir, exist_ok=True)
+        cfg = self.cfg
+        eph, sbf = self.decode()
+        pos_svs = self.usable_svs()
+        acq = self.acquisition()
+        ch = [acq.channel_index(p) for p in pos_svs]
+        name = cfg.file.name
+        matref.save_nacquired_mat(
+            os.path.join(out_dir, f"nAcquired_{name}_{cfg.file.skip_ms}.mat"),
+            pos_svs, acq.snr_db[ch], acq.doppler_hz[ch],
+            acq.code_delay[ch], acq.fine_freq_hz[ch])
+        matref.save_eph_mat(
+            os.path.join(out_dir, f"eph_{name}.mat"), eph, sbf=sbf,
+            sbf_path=os.path.join(out_dir, f"sbf_{name}.mat"))
+        rec, nav = self.ct_position(**(ct_kw or {}))
+        # each row's coherent time from the block sizes (the records carry
+        # the per-channel pdi 1 → 10 ms switch when it is on); the C/N0
+        # windows are normalized by it and the file tag is the final pdi,
+        # as the reference's tckRstCT_10ms_* names it
+        pdi_rows, _ = matref.pdi_from_block_sizes(
+            rec.num_sample, cfg.signal.samples_per_ms)
+        cn0 = cn0_series(rec.p_i, rec.p_q, t_coh_s=pdi_rows * 1e-3)
+        tag = int(pdi_rows.max())
+        matref.save_tck_records_mat(
+            os.path.join(out_dir, f"tckRstCT_{tag}ms_{name}.mat"), rec,
+            pos_svs, bytes_per_sample=cfg.file.bytes_per_sample,
+            cn0_ct=cn0, samples_per_ms=cfg.signal.samples_per_ms)
+        matref.save_navsol_mat(
+            os.path.join(out_dir, f"navSolCT_{tag}ms_{name}.mat"), nav)
+
+        if vt is None:
+            vt = (cfg.solu.mode == 2 and cfg.cmn.vt_enable
+                  and self._have(self._vt_stem(**(vt_kw or {}))))
+        if vt:
+            vt_trk, vt_sol = self.vt_position(**(vt_kw or {}))
+            multicorr = (vt_kw or {}).get("multicorr")
+            if multicorr is None:
+                multicorr = cfg.cmn.multicorr_vt
+            p = VTParams.multicorr() if multicorr else VTParams()
+            # CN0_VT: one row per moment-estimator window; the per-ms cn0
+            # refreshes every cn0_window blocks, so the fresh values sit at
+            # rows k·W − 1 (trackingVT_POS_updated.m:294-303)
+            cn0_vt = vt_sol.cn0_dbhz[p.cn0_window - 1::p.cn0_window]
+            matref.save_vt_records_mat(
+                os.path.join(out_dir, f"tckRstVT_{name}_updated.mat"),
+                vt_trk, pos_svs,
+                bytes_per_sample=cfg.file.bytes_per_sample,
+                samples_per_ms=cfg.signal.samples_per_ms,
+                cn0_vt=cn0_vt, i_early=p.i_early, i_prompt=p.i_prompt,
+                i_late=p.i_late)
+            matref.save_navsol_vt_mat(
+                os.path.join(out_dir, f"navSolVT_{name}_updated.mat"),
+                vt_sol, eph={q: eph[q] for q in pos_svs},
+                trk=vt_trk, r_update_ms=p.r_update_ms)
+
+    def report(self, out_dir: str, vt: bool = True,
+               ct_kw: Optional[Dict] = None,
+               vt_kw: Optional[Dict] = None) -> None:
+        """Stage 7: the Task 1-5 result plots (Plot_task_1..5.m) and the
+        channel dashboards as PNG files, and the decoded-ephemeris CSV
+        (Task_3_table.m).  Needs matplotlib: without it the plots raise
+        its ImportError."""
+        from gps_sdr_tpu_torch.analysis import plots
+        from gps_sdr_tpu_torch.utils.metrics import export_ephemeris_table
+
+        acq = self.acquisition()
+        eph, _ = self.decode()
+        pos_svs = self.usable_svs()
+        truth = llh2xyz(np.asarray(self.cfg.solu.truth_llh)).numpy()
+        rec, nav = self.ct_position(**(ct_kw or {}))
+        vt_sol = vt_trk = None
+        if vt:
+            vt_trk, vt_sol = self.vt_position(**(vt_kw or {}))
+        plots.save_all(acq=acq, records=rec, prns=pos_svs, eph=eph,
+                       nav=nav, vt_sol=vt_sol, truth_ecef=truth,
+                       out_dir=out_dir, vt_trk=vt_trk)
+        export_ephemeris_table(
+            eph, os.path.join(out_dir, "task3_ephemeris.csv"), pos_svs)

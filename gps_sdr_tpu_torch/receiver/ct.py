@@ -76,13 +76,27 @@ def run_ct_positioning(records: TrackRecords, cfg: ReceiverConfig,
                        eph: Dict[int, EphemerisRecord],
                        sbf: Dict[str, Dict[int, int]],
                        init_pos_ecef, pdi_ms_per_block=1,
-                       max_epochs: int | None = None) -> NavSolutions:
+                       max_epochs: int | None = None,
+                       meas_start_sample: float | None = None,
+                       local_time_advance_s: float | None = None,
+                       doppler_at_fire_row: bool = False) -> NavSolutions:
     """Form WLS solutions from a tracked segment whose state started at the
     eph-decoding run's origin (skip·S + S − codedelay + 1).
 
     `pdi_ms_per_block` is the coherent length of each record row: a
     scalar, a (T,) vector or a (T, N) matrix; transmit times use each
     channel's own elapsed-ms cumsum (…:458).
+
+    The three options replay records the reference wrote itself:
+    `meas_start_sample` gives the first measurement sample (the reference
+    anchors it in its eph record, which predates its POS record's rows,
+    …:151-164); `local_time_advance_s` the per-epoch local-clock advance
+    (the reference's measSampleStep counts bytes, …:164,554, so its
+    localTime steps twice the epoch on IQ data; only clkBias and localTime
+    show it); `doppler_at_fire_row=True` feeds the velocity LS the carrier
+    frequency of the first row at which every channel has passed the
+    measurement sample, one common row as the reference's live loop
+    variable is (…:513-514), instead of each channel's own row.
     """
     sig, cmn, solu = cfg.signal, cfg.cmn, cfg.solu
     fs = sig.fs
@@ -100,18 +114,23 @@ def run_ct_positioning(records: TrackRecords, cfg: ReceiverConfig,
     nav1 = np.array([sbf["nav1"][p] for p in prns])
     sfb1 = np.array([eph[p].sfb[0] for p in prns])
 
-    anchor_rows = nav1 + sfb1 * 20 - 1
-    if anchor_rows.max() >= T:
-        raise ValueError(
-            f"CT record ({T} rows) does not reach the first-subframe anchor "
-            f"at row {int(anchor_rows.max())} (decoded nav1 + sfb1·20) — "
-            "track more ms or decode with a smaller start_offset_ms")
-    meas_start = max(first_subframe_sample(records, ch, int(nav1[ch]),
-                                           int(sfb1[ch]))
-                     for ch in range(n_ch)) + 1
+    if meas_start_sample is None:
+        anchor_rows = nav1 + sfb1 * 20 - 1
+        if anchor_rows.max() >= T:
+            raise ValueError(
+                f"CT record ({T} rows) does not reach the first-subframe "
+                f"anchor at row {int(anchor_rows.max())} (decoded nav1 + "
+                "sfb1·20) — track more ms or decode with a smaller "
+                "start_offset_ms")
+        meas_start = max(first_subframe_sample(records, ch, int(nav1[ch]),
+                                               int(sfb1[ch]))
+                         for ch in range(n_ch)) + 1
+    else:
+        meas_start = float(meas_start_sample)
     sample_end = records.absolute_sample[-1].min() - 1
     meas_step = int(fs * solu.nav_sol_period_ms / 1000)
-    lt_advance = meas_step / fs
+    lt_advance = (meas_step / fs if local_time_advance_s is None
+                  else float(local_time_advance_s))
 
     abs_s = records.absolute_sample            # (T, N)
     chan = np.arange(n_ch)
@@ -174,7 +193,10 @@ def run_ct_positioning(records: TrackRecords, cfg: ReceiverConfig,
         mt = torch.as_tensor(m)
         # Doppler observable (carrFreq − IF), as the reference passes it
         # (trackingCT_POS_updated.m:514)
-        doppler = torch.as_tensor(records.carr_freq[idx, chan] - sig.f_if)
+        dop_rows = (np.full(n_ch, min(int(idx.max()) + 1, T - 1))
+                    if doppler_at_fire_row else idx)
+        doppler = torch.as_tensor(records.carr_freq[dop_rows, chan]
+                                  - sig.f_if)
         est, dop = iterated_ls_position(prvec[mt], sv_pos_rot[mt], est)
         vel, clk_drift, _ = doppler_velocity_ls(
             est[:3], sv_pos_rot[mt], sv["vel"][mt], doppler[mt],

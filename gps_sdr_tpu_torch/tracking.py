@@ -189,6 +189,14 @@ class TrackRecords:
     def p_q(self):
         return self.corr[:, :, self.i_prompt, 1]
 
+    @property
+    def e_i(self):
+        return self.corr[:, :, self.i_early, 0]
+
+    @property
+    def l_i(self):
+        return self.corr[:, :, self.i_late, 0]
+
     @staticmethod
     def concatenate(parts) -> "TrackRecords":
         return TrackRecords(*[np.concatenate([getattr(p, f) for p in parts])

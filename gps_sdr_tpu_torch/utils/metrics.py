@@ -1,7 +1,10 @@
-"""Receiver metrics: moment-method C/N0 series and the validity gate.
+"""Receiver metrics and report formatting.
 
-Host-side float64 over the recorded prompt correlators (trackingCT.m:120-134
-embeds the same estimator in every tracking loop).
+- Moment-method C/N0 series and the validity gate, host-side float64 over
+  the recorded prompt correlators (trackingCT.m:120-134 embeds the same
+  estimator in every tracking loop).
+- The acquisition table (showAcqResult.m) and the ephemeris CSV
+  (Task_3_table.m).
 """
 
 from __future__ import annotations
@@ -78,3 +81,37 @@ def gate_mask(gate: np.ndarray, thresh_db: float,
         end = starts[i + 1] if i + 1 < len(starts) else t_len
         valid[s0:end] = cur
     return valid
+
+
+def export_ephemeris_table(eph: dict, path: str, prns=None) -> str:
+    """CSV of decoded ephemerides, one column per PRN and one row per
+    parameter (the working equivalent of the reference's partly broken
+    Task_3_table.m).  Returns the text; writes it to `path` when given."""
+    prns = list(prns) if prns is not None else sorted(
+        p for p, r in eph.items() if getattr(r, "updateflag", 0) == 1)
+    scalar_rows = ["weeknum", "iodc", "iode2", "iode3", "health", "ura"]
+    param_rows = ["toe", "toc", "sqrta", "ecc", "m0", "omega0", "i0", "w",
+                  "deltan", "omegadot", "idot", "cuc", "cus", "crc", "crs",
+                  "cic", "cis", "af0", "af1", "af2", "tgd"]
+    lines = ["parameter," + ",".join(f"PRN{p}" for p in prns)]
+    for name in scalar_rows + param_rows:
+        vals = []
+        for p in prns:
+            seq = getattr(eph[p], name, [])
+            vals.append(repr(seq[0]) if len(seq) else "")
+        lines.append(f"{name}," + ",".join(vals))
+    text = "\n".join(lines) + "\n"
+    if path:
+        with open(path, "w") as f:
+            f.write(text)
+    return text
+
+
+def format_acquisition_table(acq, f_if: float) -> str:
+    """Console table of acquisition results (showAcqResult.m:14-20)."""
+    lines = ["PRN   SNR[dB]  Doppler[Hz]  FineDoppler[Hz]  CodeDelay[smp]"]
+    for i, sv in enumerate(acq.sv):
+        lines.append(
+            f"{int(sv):3d} {acq.snr_db[i]:9.2f} {acq.doppler_hz[i]:12.1f} "
+            f"{acq.fine_freq_hz[i] - f_if:16.1f} {int(acq.code_delay[i]):15d}")
+    return "\n".join(lines)

@@ -538,6 +538,101 @@ def test_schedules_keep_their_own_records(schedule):
     assert short.corr.shape[0] == again.corr.shape[0] - (N10 - 100)
 
 
+def _copy_artifacts(src_dir, dst, prefixes):
+    import os
+    import shutil
+    for f in os.listdir(src_dir):
+        if f.startswith(prefixes):
+            shutil.copy(os.path.join(src_dir, f), dst)
+
+
+def test_decode_reads_the_reference_record(schedule, tmp_path, monkeypatch):
+    """A second Receiver on a directory that holds only the reference
+    schedule's record (no countinx_ or eph_ artifact) decodes that record
+    and tracks nothing (`run_tracking` counted by a spy); its countinx is
+    the record's.  With the plain schedule's record beside it, neither built
+    by the Receiver, decode raises and names both files."""
+    import os
+
+    from gps_sdr_tpu_torch import navdecode, pipeline
+    from gps_sdr_tpu_torch.pipeline import detect_bit_transition
+    tcfg = schedule["tcfg"]
+    _copy_artifacts(schedule["dir"], tmp_path, ("acquired_", "tckeph_ref_"))
+    calls = []
+    real = pipeline.run_tracking
+    monkeypatch.setattr(pipeline, "run_tracking",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    src = TSource(schedule["path"], tcfg.file)
+    rx = TReceiver(tcfg, src, artifact_dir=str(tmp_path), device="cpu")
+    eph, sbf = rx.decode(start_offset_ms=0)
+    cnt = rx.countinx(min_transition_index=MIN_TRANSITION)
+    assert calls == []
+    trec = schedule["trec"]
+    acq = rx.acquisition()
+    want_eph, want_sbf = navdecode.decode_all(
+        {int(p): trec.p_i[:, ch] for ch, p in enumerate(acq.sv)}, 0)
+    assert sbf == want_sbf and sorted(eph) == sorted(want_eph)
+    np.testing.assert_array_equal(cnt, [detect_bit_transition(
+        trec.p_i[:, ch], min_index=MIN_TRANSITION) for ch in range(2)])
+    # both schedules' records on disk: ambiguous
+    rx._save_records("tckeph_refsched.npz", trec)
+    for stem in ("eph_refsched.pkl", "countinx_refsched.npz"):
+        os.remove(tmp_path / stem)
+    rx2 = TReceiver(tcfg, src, artifact_dir=str(tmp_path), device="cpu")
+    ref_stem = f"tckeph_ref_refsched_{N1}_{N10}_{MIN_TRANSITION}.npz"
+    with pytest.raises(RuntimeError, match="tckeph_refsched.npz") as err:
+        rx2.decode(start_offset_ms=0)
+    assert ref_stem in str(err.value)
+    assert calls == []
+
+
+def test_port_refuses_pickles_it_did_not_write(schedule, tmp_path,
+                                               monkeypatch):
+    """The JAX package decodes into a directory (its `eph_{name}.pkl`); a
+    port Receiver on that directory raises a ValueError that names the file
+    and the JAX package, and unpickles nothing.  An untagged pickle of the
+    port's own classes (what the port wrote before it tagged its pickles)
+    is refused the same way; a tagged one loads."""
+    import pickle
+
+    from gps_sdr_tpu.io.ifdata import IFSampleSource
+    from gps_sdr_tpu.pipeline import Receiver
+    cfg, tcfg = schedule["cfg"], schedule["tcfg"]
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    jdir.mkdir()
+    tdir.mkdir()
+    _copy_artifacts(schedule["dir"], jdir, ("acquired_",))
+    Receiver._save_records(str(jdir / "tckeph_refsched.npz"),
+                           schedule["jrx"]._eph_records)
+    jrx = Receiver(cfg, IFSampleSource(schedule["path"], cfg.file),
+                   artifact_dir=str(jdir), mesh=None)
+    jeph, jsbf = jrx.decode(start_offset_ms=0)
+    assert (jdir / "eph_refsched.pkl").exists()
+
+    def no_unpickling(*a, **k):
+        raise AssertionError("unpickled a file that is not the port's")
+
+    src = TSource(schedule["path"], tcfg.file)
+    with monkeypatch.context() as m:
+        m.setattr(pickle, "loads", no_unpickling)
+        m.setattr(pickle, "load", no_unpickling)
+        rx = TReceiver(tcfg, src, artifact_dir=str(jdir), device="cpu")
+        with pytest.raises(ValueError, match="written by gps_sdr_tpu,") as e:
+            rx.decode(start_offset_ms=0)
+        assert str(jdir / "eph_refsched.pkl") in str(e.value)
+        assert "not this package's artifact" in str(e.value)
+    teph, tsbf = convert.ephemeris_from_jax(jeph, jsbf)
+    with open(tdir / "eph_refsched.pkl", "wb") as f:
+        pickle.dump((teph, tsbf), f)
+    rx = TReceiver(tcfg, src, artifact_dir=str(tdir), device="cpu")
+    with pytest.raises(ValueError, match="written by gps_sdr_tpu_torch,"):
+        rx.decode(start_offset_ms=0)
+    rx._save_pickle("eph_refsched.pkl", (teph, tsbf))
+    eph, sbf = TReceiver(tcfg, src, artifact_dir=str(tdir),
+                         device="cpu").decode(start_offset_ms=0)
+    assert sbf == tsbf and sorted(eph) == sorted(teph)
+
+
 # ------------------------- (2) against the TPU kernel over windows (interpret)
 
 

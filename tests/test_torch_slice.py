@@ -8,8 +8,10 @@ temporary directory (never the shared .cache/).
 Both Receivers run acquisition → track_for_eph(31800) → decode(200) →
 usable_svs → ct_position(4000) → vt_position(600, ct 4000, from a start
 3.7 km off) → vt_position(200, the 29-tap bank) → ct_position(2400 rows
-with the per-channel pdi 1 → 10 ms switch at row 2000 + countinx), each
-with its own artifact directory; the JAX one single-device (mesh=None), its
+with the per-channel pdi 1 → 10 ms switch at row 2000 + countinx) →
+ct_position_kf(4000, the legacy filter, from the 3.7 km start) →
+export_mat (twice: with the VT stage's kwargs, and with an n_ms no VT run
+used) → report, each with its own artifact and output directories; the JAX one single-device (mesh=None), its
 VT on the exact-NCO replica (what "auto" resolves to off the TPU).  The
 port tracks on the CPU through the plain version of the tracking kernel (the
 10 ms blocks through `track_scan`), the same arithmetic as the JAX "nco"
@@ -26,6 +28,7 @@ navigation data is identical, and the fixes agree to decimetres; the
 positioning code alone, fed the JAX records, agrees to 1e-6 m.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -87,10 +90,21 @@ def runs(tmp_path_factory):
         mc_trk, mc_sol = rx.vt_position(n_ms=VT_MC_MS, ct_n_ms=CT_MS,
                                         init_pos_ecef=init, multicorr=True)
         sw_rec, sw_nav = rx.ct_position(n_ms=SW_ROWS, pdi_switch_ms=SW_MS)
+        kf_rec, kf_nav = rx.ct_position_kf(n_ms=CT_MS, init_pos_ecef=init)
+        vt_kw = dict(n_ms=VT_MS, ct_n_ms=CT_MS, init_pos_ecef=init)
+        mat, no_vt = str(root / f"{tag}_mat"), str(root / f"{tag}_mat_no_vt")
+        rx.export_mat(mat, ct_kw=dict(n_ms=CT_MS), vt_kw=vt_kw)
+        rx.export_mat(no_vt, ct_kw=dict(n_ms=CT_MS),
+                      vt_kw=dict(vt_kw, n_ms=VT_MS - 1))
+        report = str(root / f"{tag}_report")
+        rx.report(report, ct_kw=dict(n_ms=CT_MS), vt_kw=vt_kw)
         out[tag] = dict(acq=acq, rec=rec, eph=eph, sbf=sbf, usable=usable,
                         ct_rec=ct_rec, nav=nav, dir=rx.dir, vt_trk=vt_trk,
                         vt_sol=vt_sol, mc_trk=mc_trk, mc_sol=mc_sol,
-                        sw_rec=sw_rec, sw_nav=sw_nav, cnt=rx.countinx())
+                        sw_rec=sw_rec, sw_nav=sw_nav, cnt=rx.countinx(),
+                        kf_rec=kf_rec, kf_nav=kf_nav, mat=mat, no_vt=no_vt,
+                        report=report)
+    out["init"] = init
     return out
 
 
@@ -273,8 +287,9 @@ def test_vt_multicorr_bank(runs):
 
 
 def test_position_dispatches_on_mode(runs):
-    """`Receiver.position`: mode 2 is the VT stage, mode 0 the CT stage
-    (both served from the artifacts here); mode 1 is not ported."""
+    """`Receiver.position`: mode 2 is the VT stage, mode 0 the CT stage,
+    mode 1 the legacy filter (`ct_position_kf`); all served from the
+    artifacts here."""
     import dataclasses
     tcfg = runs["tcfg"]
     src = TSource(runs["path"], tcfg.file)
@@ -285,21 +300,259 @@ def test_position_dispatches_on_mode(runs):
     trk, sol = rx.position(n_ms=VT_MS, ct_n_ms=CT_MS, init_pos_ecef=init)
     np.testing.assert_array_equal(sol.usr_pos,
                                   runs["torch"]["vt_sol"].usr_pos)
-    for mode, want in ((0, "ct"), (1, None)):
+    for mode, kw, want in ((0, {}, runs["torch"]["nav"]),
+                           (1, dict(init_pos_ecef=init),
+                            runs["torch"]["kf_nav"])):
         cfg_m = dataclasses.replace(
             tcfg, solu=dataclasses.replace(tcfg.solu, mode=mode))
         rx_m = TReceiver(cfg_m, src, artifact_dir=runs["torch"]["dir"],
                          device="cpu")
-        if want is None:
-            with pytest.raises(NotImplementedError):
-                rx_m.position(n_ms=CT_MS)
-        else:
-            _, nav = rx_m.position(n_ms=CT_MS)
-            np.testing.assert_array_equal(nav.usr_pos,
-                                          runs["torch"]["nav"].usr_pos)
+        _, nav = rx_m.position(n_ms=CT_MS, **kw)
+        assert type(nav) is type(want)
+        np.testing.assert_array_equal(nav.usr_pos, want.usr_pos)
 
 
 def test_artifacts_share_the_jax_stems(runs):
     j = set(os.listdir(runs["jax"]["dir"])) - {"jax_cache"}
     t = set(os.listdir(runs["torch"]["dir"]))
     assert t == j, (sorted(t), sorted(j))
+
+
+# ------------------------------------------------ the legacy filter (mode 1)
+
+
+def test_kf_converges_and_agrees(runs):
+    """tests/test_legacy_components.py::test_legacy_kf_positioning on the
+    slice capture: from the 3.7 km start both packages' position-domain
+    filters converge (median error under 60 m after epoch 20) with the
+    common 75 ms-base offset in the clock state (1e5 < |b| < 3e6 m); their
+    fixes are within 1 m of each other, the parity rule of the scalar path;
+    the stems are the JAX package's."""
+    j, t = runs["jax"], runs["torch"]
+    jp, tp = j["kf_nav"].usr_pos, t["kf_nav"].usr_pos
+    assert tp.shape == jp.shape and len(tp) >= 50
+    for nav in (j["kf_nav"], t["kf_nav"]):
+        err = np.linalg.norm(nav.usr_pos[20:] - runs["usr"], axis=1)
+        assert np.median(err) < 60.0, np.median(err)
+        assert 1e5 < abs(nav.clk_bias_m[-1]) < 3e6
+    dist = np.linalg.norm(tp - jp, axis=1)
+    print(f"KF: {len(tp)} epochs, fixes median {np.median(dist):.3f} m, "
+          f"max {np.max(dist):.3f} m apart")
+    assert np.max(dist) < 1.0, dist
+    _assert_chains_agree(j["kf_rec"], t["kf_rec"])
+    for d in (j["dir"], t["dir"]):
+        assert sorted(f for f in os.listdir(d) if "_kf_" in f) == sorted(
+            f"{s}_kf_{runs['cfg'].file.name}_{CT_MS}_def_"
+            f"{TReceiver._init_token(runs['init'])}.{e}"
+            for s, e in (("tckct", "npz"), ("navct", "pkl")))
+
+
+def test_kf_from_jax_records(runs):
+    """The JAX KF records and decode through the port's filter give the JAX
+    filter's epochs to 1e-6 m."""
+    from gps_sdr_tpu_torch.receiver.ct_legacy import run_ct_positioning_kf
+    j = runs["jax"]
+    eph, sbf = convert.ephemeris_from_jax(j["eph"], j["sbf"])
+    nav = run_ct_positioning_kf(convert.records_from_jax(j["kf_rec"]),
+                                runs["tcfg"], j["usable"], eph, sbf,
+                                runs["init"])
+    for k in ("usr_pos", "usr_vel", "clk_bias_m", "clk_drift_ms", "state",
+              "raw_pseudorange"):
+        np.testing.assert_allclose(getattr(nav, k), getattr(j["kf_nav"], k),
+                                   rtol=0, atol=1e-6, err_msg=k)
+
+
+# ------------------------------------------------- .mat export and report
+
+
+MAT_FILES = ["eph_geo_scn.mat", "nAcquired_geo_scn_0.mat",
+             "navSolCT_1ms_geo_scn.mat", "navSolVT_geo_scn_updated.mat",
+             "sbf_geo_scn.mat", "tckRstCT_1ms_geo_scn.mat",
+             "tckRstVT_geo_scn_updated.mat"]
+
+
+def test_export_mat_reference_schemas(runs):
+    """Receiver.export_mat writes the reference's chain under the same file
+    names as the JAX package's; vt=None exported the VT chain because the VT
+    stage had run for those kwargs and skipped it for an n_ms no run used.
+    The port's files reload through its loaders, equal to the records,
+    solutions, ephemerides and acquisition in memory."""
+    from gps_sdr_tpu_torch.io import matref
+    j, t = runs["jax"], runs["torch"]
+    for d in (j, t):
+        assert sorted(os.listdir(d["mat"])) == MAT_FILES
+        assert sorted(os.listdir(d["no_vt"])) == [
+            f for f in MAT_FILES if "VT" not in f]
+    prns, out = t["usable"], t["mat"]
+    bps = runs["tcfg"].file.bytes_per_sample
+    rec, pdi = matref.load_tck_records(
+        os.path.join(out, "tckRstCT_1ms_geo_scn.mat"), prns,
+        bytes_per_sample=bps)
+    assert int(pdi.max()) == 1
+    for f, a in convert.records_to_numpy(t["ct_rec"]).items():
+        np.testing.assert_array_equal(getattr(rec, f), a, err_msg=f)
+    nav = matref.load_navsol(os.path.join(out, "navSolCT_1ms_geo_scn.mat"))
+    np.testing.assert_array_equal(nav.usr_pos, t["nav"].usr_pos)
+    trk, cn0 = matref.load_vt_records(
+        os.path.join(out, "tckRstVT_geo_scn_updated.mat"), prns,
+        bytes_per_sample=bps)
+    np.testing.assert_array_equal(trk.absolute_sample,
+                                  t["vt_trk"].absolute_sample)
+    np.testing.assert_array_equal(trk.code_freq, t["vt_trk"].code_freq)
+    assert cn0.shape == (VT_MS // 20, len(prns))
+    g = matref.load_navsol_vt(
+        os.path.join(out, "navSolVT_geo_scn_updated.mat"))
+    np.testing.assert_array_equal(g["usrPos"], t["vt_sol"].usr_pos)
+    assert g["kalman_gain"].shape == (8, 2 * len(prns), VT_MS)
+    eph = matref.load_eph(os.path.join(out, "eph_geo_scn.mat"))
+    assert sorted(eph) == sorted(t["eph"])
+    assert matref.load_sbf(os.path.join(out, "sbf_geo_scn.mat"))["nav1"][
+        prns[0]] == t["sbf"]["nav1"][prns[0]]
+    na = matref.load_nacquired(os.path.join(out, "nAcquired_geo_scn_0.mat"))
+    assert list(na["sv"]) == list(prns)
+    np.testing.assert_array_equal(
+        na["code_delay"],
+        t["acq"].code_delay[[t["acq"].channel_index(p) for p in prns]])
+
+
+def test_report_writes_all_outputs(runs):
+    """Receiver.report writes the reference's eight files (the JAX
+    package's names), every PNG over 10 KB, and the ephemeris CSV equal to
+    the JAX package's text (identical decodes)."""
+    j, t = runs["jax"], runs["torch"]
+    files = sorted(os.listdir(t["report"]))
+    assert files == sorted(os.listdir(j["report"])) == [
+        "channels_dashboard.png", "task1_acquisition.png",
+        "task2_tracking.png", "task3_ephemeris.csv", "task3_ephemeris.png",
+        "task4_wls.png", "task5_ekf.png", "vt_channels.png"]
+    for f in files:
+        if f.endswith(".png"):
+            assert os.path.getsize(os.path.join(t["report"], f)) > 10_000, f
+    texts = [open(os.path.join(d["report"], "task3_ephemeris.csv")).read()
+             for d in (j, t)]
+    assert texts[0] == texts[1]
+    assert texts[1].splitlines()[0] == "parameter," + ",".join(
+        f"PRN{p}" for p in t["usable"])
+
+
+# ------------------- the validity mask (tests/test_validity_mask.py)
+
+
+@pytest.fixture(scope="module")
+def dropout(runs):
+    """The port's CT records with channel 0 losing lock at row 2000:
+    correlators collapse to noise, the code phase walks off (~2.9 m a ms)."""
+    from gps_sdr_tpu_torch.tracking import _REC_FIELDS, TrackRecords
+    rec = runs["torch"]["ct_rec"]
+    d = {f: np.array(getattr(rec, f)) for f in _REC_FIELDS}
+    t0, t_len = 2000, d["corr"].shape[0]
+    rng = np.random.default_rng(3)
+    d["corr"][t0:, 0] = rng.normal(scale=1.0, size=d["corr"][t0:, 0].shape)
+    d["rem_chip"][t0:, 0] += 0.01 * np.arange(t_len - t0)
+    return TrackRecords(**d, i_early=rec.i_early, i_prompt=rec.i_prompt,
+                        i_late=rec.i_late), t0
+
+
+def _both_navs(runs, rec, cfg_update=None):
+    """The port's and the JAX package's WLS epochs on the same records."""
+    from gps_sdr_tpu.receiver.ct import run_ct_positioning as jrun
+    cfg, tcfg = runs["cfg"], runs["tcfg"]
+    if cfg_update:
+        cfg = cfg.replace(solu=dataclasses.replace(cfg.solu, **cfg_update))
+        tcfg = tcfg.replace(solu=dataclasses.replace(tcfg.solu,
+                                                     **cfg_update))
+    t, j = runs["torch"], runs["jax"]
+    nav = run_ct_positioning(rec, tcfg, t["usable"], t["eph"], t["sbf"],
+                             runs["usr"])
+    jnav = jrun(rec, cfg, j["usable"], j["eph"], j["sbf"], runs["usr"])
+    np.testing.assert_array_equal(nav.valid, jnav.valid)
+    np.testing.assert_allclose(nav.usr_pos, jnav.usr_pos, rtol=0, atol=1e-6)
+    return nav
+
+
+def test_ct_mask_drops_dead_channel_and_survives(runs, dropout):
+    """The gate drops the dead channel within ~2 C/N0 windows and keeps
+    the others; the fix survives on 4 SVs; the JAX package gates and fixes
+    the same records identically (masks equal, fixes within 1e-6 m)."""
+    rec, t0 = dropout
+    nav = _both_navs(runs, rec)
+    err = np.linalg.norm(nav.usr_pos - runs["usr"], axis=1)
+    e0 = np.searchsorted(nav.local_time - nav.local_time[0],
+                         (t0 - 1080) / 1000.0) + 5
+    assert not nav.valid[e0 + 5:, 0].any(), "dead channel still in WLS"
+    assert nav.valid[e0 + 5:, 1:].all(), "healthy channels were masked"
+    assert np.median(nav.cn0_dbhz[e0 + 5:, 0]) < 35.0
+    assert np.median(err[e0 + 5:]) < 60.0, np.median(err[e0 + 5:])
+    assert np.median(err[5:e0 - 2]) < 40.0
+
+
+def test_ct_unmasked_dropout_poisons_solution(runs, dropout):
+    """With the gate off (threshold 0, the reference's behaviour) the
+    walking pseudorange wrecks the fix, in both packages alike."""
+    rec, _ = dropout
+    nav = _both_navs(runs, rec, dict(mask_snr_db=0.0))
+    err = np.linalg.norm(nav.usr_pos - runs["usr"], axis=1)
+    assert np.median(err[-30:]) > 150.0, np.median(err[-30:])
+
+
+VT_MASK_MS = 1000
+
+
+def test_vt_mask_survives_corrupted_channel(runs):
+    """A channel handed to VT two chips off the peak never correlates: the
+    EKF gates it out within a few C/N0 windows, keeps the others and holds
+    the fix (median under 60 m, max under 120 m from row 500).  The JAX
+    package from the same corrupted start makes the same gate decisions
+    (the dead channel's exit up to one C/N0 window apart; measured: 20
+    rows), and its median error is within 10 m of the port's."""
+    from gps_sdr_tpu.geo.ephemeris import Ephemeris as JEphemeris
+    from gps_sdr_tpu.receiver import vt as jvt
+    from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris
+    from gps_sdr_tpu_torch.receiver import vt as tvt
+    cfg, tcfg, usr = runs["cfg"], runs["tcfg"], runs["usr"]
+    t = runs["torch"]
+    eph, sbf, prns = t["eph"], t["sbf"], t["usable"]
+    ct_rec, ct_nav = t["ct_rec"], t["nav"]
+    epoch0 = cfg.file.skiptime_vt_ms // cfg.solu.nav_sol_period_ms - 1
+    f0 = cfg.signal.code_freq_basis
+    start_slot, tt0 = {}, np.empty(len(prns))
+    for ch, p in enumerate(prns):
+        first_sf_ms = sbf["nav1"][p] + eph[p].sfb[0] * 20
+        slot = first_sf_ms + cfg.file.skiptime_vt_ms - 1
+        start_slot[ch] = slot
+        tt0[ch] = (eph[p].tow[0] + (slot + 1 - first_sf_ms) / 1000.0
+                   + ct_rec.rem_chip[slot, ch] / f0)
+    args = (list(range(len(prns))), start_slot, tt0, ct_nav.usr_pos[epoch0],
+            ct_nav.usr_vel[epoch0], float(ct_nav.clk_bias_m[epoch0]),
+            float(ct_nav.clk_drift_ms[epoch0]))
+    st = tvt.init_vt_state(tcfg, ct_rec, *args, tvt.VTParams(), "cpu")
+    rem, tt = st.rem_chip.clone(), st.transmit_time.clone()
+    rem[0] += 2.0
+    tt[0] += 2.0 / f0
+    trk, sol, _ = tvt.run_vector_tracking(
+        TSource(runs["path"], tcfg.file), tcfg, prns,
+        Ephemeris.stack([eph[p].latest(0) for p in prns], "cpu"),
+        st._replace(rem_chip=rem, transmit_time=tt), tvt.VTParams(),
+        VT_MASK_MS, usr)
+    err = np.linalg.norm(sol.usr_pos - usr, axis=1)
+    assert not sol.valid[200:, 0].any()
+    assert sol.valid[200:, 1:].all()
+    assert np.median(err[500:]) < 60.0, np.median(err[500:])
+    assert np.max(err[500:]) < 120.0
+    jparams = jvt.VTParams(replica="nco")
+    jst = jvt.init_vt_state(cfg, ct_rec, *args, jparams)
+    jst = jst._replace(rem_chip=jst.rem_chip.at[0].add(2.0),
+                       transmit_time=jst.transmit_time.at[0].add(2.0 / f0))
+    jeph = JEphemeris(**{k: np.asarray([eph[p].latest(0)[k] for p in prns])
+                         for k in JEphemeris._fields})
+    _, jsol, _ = jvt.run_vector_tracking(
+        JSource(runs["path"], cfg.file), cfg, prns, jeph, jst, jparams,
+        VT_MASK_MS, usr)
+    # the same gate decisions but for when the dead channel leaves: the
+    # two runs' noise paths may put that one C/N0 window (20 rows) apart
+    diff = sol.valid != jsol.valid
+    assert not diff[:, 1:].any() and diff[:, 0].sum() <= 20, \
+        np.flatnonzero(diff[:, 0])
+    np.testing.assert_array_equal(sol.valid[200:], jsol.valid[200:])
+    jerr = np.linalg.norm(jsol.usr_pos - usr, axis=1)
+    assert abs(np.median(err[500:]) - np.median(jerr[500:])) < 10.0

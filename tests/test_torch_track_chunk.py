@@ -302,3 +302,87 @@ def test_cuda_cluster_sizes_agree():
                 assert torch.equal(got[f], one[f]), (kind, remove_dc, f)
             for a, b in zip(end, end1):
                 assert torch.equal(a, b), (kind, remove_dc)
+
+
+# ---- absolute code phase (tests/test_absolute_code_phase.py) ----
+
+
+@pytest.fixture(scope="module")
+def single_sv():
+    """One SV (PRN 12) from the scenario's broadcast set, transmit-time
+    geometry without clock offsets, 2600 ms at 5 MHz made by the port's
+    generator; acquired and tracked 2500 ms (1 ms E/P/L) by both
+    packages."""
+    import scenario as sc
+    from gps_sdr_tpu.acquisition import run_acquisition as j_acq
+    from gps_sdr_tpu.io.ifdata import IFSampleSource
+    from gps_sdr_tpu.tracking import (TrackParams, init_track_state,
+                                      run_tracking)
+    from gps_sdr_tpu_torch.acquisition import run_acquisition
+    from gps_sdr_tpu_torch.config import (FileConfig, ReceiverConfig,
+                                          SignalConfig)
+    from gps_sdr_tpu_torch.geo.coords import llh2xyz
+    from gps_sdr_tpu_torch.io.synthetic import GeometrySignal, GeometrySV
+    tcfg = ReceiverConfig(file=FileConfig(name="single_sv", skip_ms=0),
+                          signal=SignalConfig(f_if=1.25e6, fs=5e6))
+    eph = sc.visible_constellation(1)[0]
+    usr = llh2xyz(np.asarray(sc.TRUTH_LLH)).numpy()
+    gs = GeometrySignal(tcfg, [GeometrySV(prn=12, eph=eph, amplitude=3.0)],
+                        usr, sc.TOW0, clk_bias_s=0.0, clk_drift_sps=0.0,
+                        n_subframes=4, device="cpu")
+    vals = gs.synthesize(2600, noise_std=8.0, seed=3)
+    src = TIFSampleSource.from_array(vals, tcfg.file)
+    acq = run_acquisition(src, tcfg, prns=[12], device="cpu")
+    rec, _ = t_run(src, tcfg, [12], t_init(tcfg, acq.code_delay,
+                                           acq.fine_freq_hz, "cpu"),
+                   TTrackParams.epl(tcfg), 2500)
+    cfg = _jax_cfg().replace(signal=sc.CFG.signal)
+    jsrc = IFSampleSource.from_array(vals, cfg.file)
+    jacq = j_acq(jsrc, cfg, prns=[12])
+    jrec, _ = run_tracking(jsrc, cfg, [12], init_track_state(
+        cfg, jacq.code_delay, jacq.fine_freq_hz),
+        TrackParams.epl(cfg, replica="nco"), 2500)
+    return dict(cfg=tcfg, gs=gs, rec=rec, jrec=jrec, acq=acq, jacq=jacq)
+
+
+def _code_biases(gs, rec, cfg):
+    """Generator chip count minus tracked replica chips at the block ends
+    of rows 1500..2400, wrapped to ±511.5 chips."""
+    fs, fchip = cfg.signal.fs, cfg.signal.code_freq_basis
+    rebase = gs.tow0 - gs.msg_tow0
+    out = []
+    for i in range(1500, 2500, 100):
+        a = float(rec.absolute_sample[i, 0])
+        tracked = 1023.0 * (i + 1) + rec.rem_chip[i, 0]
+        delta = float(gs.sv_clock_delta(12, np.array([a / fs]))[0])
+        true = (rebase + a / fs + delta) * fchip
+        out.append((true - tracked + 511.5) % 1023.0 - 511.5)
+    return np.asarray(out)
+
+
+def test_absolute_code_phase_bias(single_sv):
+    """The tracked code phase against the generator's geometry: a constant
+    integer chip count plus a DLL bias under 0.015 chip (≈ 4.4 m) with a
+    spread under 0.01 chip, for the port as for the JAX package (same
+    acquisition), whose biases it matches within 0.005 chip."""
+    cfg, gs = single_sv["cfg"], single_sv["gs"]
+    np.testing.assert_array_equal(single_sv["acq"].code_delay,
+                                  single_sv["jacq"].code_delay)
+    b = _code_biases(gs, single_sv["rec"], cfg)
+    jb = _code_biases(gs, single_sv["jrec"], cfg)
+    frac = b - np.round(np.mean(b))
+    assert abs(np.mean(frac)) < 0.015, np.mean(frac)
+    assert np.std(frac) < 0.01
+    np.testing.assert_allclose(b, jb, rtol=0, atol=0.005)
+
+
+def test_tracked_doppler_matches_geometry(single_sv):
+    """Mean tracked carrier over rows 2000-2199 within 1 Hz of the
+    geometry's Doppler, and within 0.05 Hz of the JAX package's."""
+    cfg, gs = single_sv["cfg"], single_sv["gs"]
+    d = gs.sv_clock_delta(12, np.array([2.0, 2.2])).numpy()
+    f_true = cfg.signal.f_if + (d[1] - d[0]) / 0.2 * cfg.signal.fc
+    f_track = np.mean(single_sv["rec"].carr_freq[2000:2200, 0])
+    assert abs(f_track - f_true) < 1.0, (f_track, f_true)
+    assert abs(f_track - np.mean(single_sv["jrec"].carr_freq[2000:2200, 0])) \
+        < 0.05
