@@ -59,8 +59,27 @@ Phases, each printing one line of evidence:
    with all three kernels' launches counted; then export_mat of the
    switched CT stage (tckRstCT_10ms_*, the pdi rows of the 1 → 10 switch).
 
+5. Time-segmented eph tracking on phase 3's capture, a Receiver of its
+   own: track_for_eph(39800, n_segments=8), 8 channels × 8 segments with a
+   400 ms halo as one batch of 64, the capture uploaded to the card once
+   and read in place by every chunk's track_chunk launch (6 of them); the
+   last chunk, which reads past pair 2^31, again through the kernel and
+   its plain version, every field and the end state equal bit for bit;
+   the stitched record against phase 3's serial one (the gates of
+   tests/test_time_segments.py, the alignment in chips); B1's time per
+   chunk at 64 channels and its bound; then decode → the 8 ephemerides of
+   phase 3 and ct_position(3000)'s WLS fixes.
+6. The command line: a 47 s capture of the same scenario synthesized on
+   the card into a file under build/, then
+   `python -m gps_sdr_tpu_torch.cli <file> --preset opensky --ct-ms 3300
+   --vt-ms 1000 --no-plots --out <dir>` in a process of its own: exit code,
+   its acquisition table, usable SVs, the WLS and VT medians against the
+   scenario's truth from its `.mat` files, every file read back through
+   io/matref, its wall time and its kernel launches (it prints them).
+
 Receiver.report (the plots) is not run here: it needs matplotlib, which the
-GPU machine does not have; the CPU tests run it.
+GPU machine does not have (hence the command's --no-plots); the CPU tests
+run it.
 
 Then one JSON line on the kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (exit code ≠ 0).
@@ -74,6 +93,7 @@ them and how many graph launches a replayed step takes.  With
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -90,7 +110,8 @@ import torch
 from gps_sdr_tpu_torch import tracking
 from gps_sdr_tpu_torch.config import (CommonConfig, FileConfig,
                                       ReceiverConfig, SignalConfig,
-                                      SolutionConfig, TrackConfig)
+                                      SolutionConfig, TrackConfig,
+                                      opensky_config)
 from gps_sdr_tpu_torch.geo.coords import llh2xyz
 from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris, sv_pos_vel_clock
 from gps_sdr_tpu_torch.io.ifdata import DeviceStager, IFSampleSource
@@ -101,7 +122,9 @@ from gps_sdr_tpu_torch.io.synthetic import (GeometrySignal, GeometrySV,
 from gps_sdr_tpu_torch.ops import _build
 from gps_sdr_tpu_torch.ops import corr_bank as cb
 from gps_sdr_tpu_torch.ops import track_chunk as tc
-from gps_sdr_tpu_torch.pipeline import Receiver, detect_bit_transition
+from gps_sdr_tpu_torch.parallel import time_segments as ts
+from gps_sdr_tpu_torch.pipeline import (SEGMENT_HALO_MS, Receiver,
+                                        detect_bit_transition)
 from gps_sdr_tpu_torch.receiver import vt as tvt
 from gps_sdr_tpu_torch.receiver.ct_legacy import NavSolutionsKF
 from gps_sdr_tpu_torch.receiver.vt import VTParams
@@ -124,6 +147,18 @@ VT_SETTLE_MS = 500                      # VT gates read rows from here on
 # and 1.7 chips off, past the ±1.5 chips the ±0.5-chip discriminator sees.
 REF_1MS, REF_10MS, REF_MIN_TRANSITION, REF_CT_ROWS = 500, 40000, 300, 3000
 PDI_SWITCH_MS = 1000
+# the time-segmented eph stage: D segments of ceil(EPH_MS / D) ms, each with
+# the Receiver's pull-in halo (SEGMENT_HALO_MS); its record's block ends must lie within
+# SEG_ALIGN_CHIPS of the serial record's past row 300 (tests/
+# test_time_segments.py allows 30 samples at 4.092 MHz, 7.5 chips)
+SEGMENTS, SEG_ALIGN_CHIPS = 8, 1.0
+PAIR_2_31 = 2 ** 31      # the segments' last chunk reads past this pair
+# the command line: --preset opensky skips 5000 ms and tracks 1000 + 40000
+# ms past it, so its capture is 47 s; it starts 7 s before TOW0 so that the
+# first subframe decode() finds (from 3000 ms of the eph record on) lies at
+# ~3.07 s, inside a CT record of CLI_CT_ROWS rows (10 ms each past the
+# pdi switch at row 1000 + countinx)
+CLI_MS, CLI_CT_ROWS, CLI_VT_MS = 47000, 3300, 1000
 SCAN_BLOCKS, SCAN_LEAD_MS = 100, 80     # the both-trackers segment
 PRNS = (3, 7, 16, 22, 27, 1, 8, 30)
 AMPS = (3.0, 2.6, 2.8, 2.4, 2.7, 2.2, 3.2, 2.0)
@@ -131,6 +166,7 @@ AMP_SCALE = 0.09
 NOISE_STD = 8.0
 TRUTH_LLH = (0.3897057693107332, 1.9926489077944098, 4.0)
 TOW0 = 388799.0
+CLI_TOW0 = TOW0 - 7.0
 CLK_BIAS_S = 5e-4
 CLK_DRIFT_SPS = 2e-9
 BASE_EPH = dict(
@@ -1379,7 +1415,8 @@ def phase_main_path(dev: torch.device, workdir: str,
         / stages["eph_tracking_s"])
     evidence("main_path", **res)
     return res, dict(src=src, usr=usr, eph=rx.decode()[0],
-                     usable=[int(p) for p in usable])
+                     usable=[int(p) for p in usable], eph_rec=eph_rec,
+                     eph_tracking_s=stages["eph_tracking_s"])
 
 
 def restart_offsets_chips(rec, sw_rows) -> list:
@@ -1550,11 +1587,319 @@ def phase_reference_schedules(dev: torch.device, workdir: str,
     return res
 
 
+class ChunkCalls:
+    """Stands in for `tracking.track_chunk` while a stage runs and keeps
+    the arguments of every call (the resident capture, the chunk start,
+    the state, the code tables, the spec, the block count)."""
+
+    def __init__(self):
+        self.real, self.calls = tracking.track_chunk, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.real(*args)
+
+
+class TimedUpload:
+    """Stands in for `time_segments.upload_capture` and times each call."""
+
+    def __init__(self):
+        self.real, self.walls = ts.upload_capture, []
+
+    def __call__(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.real(*args, **kw)
+        torch.cuda.synchronize()
+        self.walls.append(time.perf_counter() - t0)
+        return out
+
+
+def _end_state_differs(a, b) -> list:
+    return [f for f in a._fields if not torch.equal(getattr(a, f),
+                                                    getattr(b, f))]
+
+
+def phase_time_segments(dev: torch.device, workdir: str, main: dict) -> dict:
+    """The eph stage in SEGMENTS time segments (overlap-save, 400 ms halo)
+    on phase 3's capture, through a Receiver of its own: the capture is
+    uploaded to the card once, and every chunk's track_chunk launch reads
+    it in place for all 8 × SEGMENTS channels.  Gates: the launches, the
+    last chunk (which reads past pair 2^31) equal bit for bit between the
+    kernel and its plain version, the stitched record against phase 3's
+    serial one (tests/test_time_segments.py's gates, the alignment in
+    chips), then decode → 8 ephemerides equal to phase 3's and the WLS
+    fixes of ct_position(3000)."""
+    cfg = cfg_e2e()
+    S = cfg.signal.samples_per_ms
+    usr, serial = main["usr"], main["eph_rec"]
+    rx = Receiver(cfg, main["src"], artifact_dir=workdir, device=dev)
+    stages = {}
+
+    def stage(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t
+        return out
+
+    acq = stage("acquisition_s", rx.acquisition)
+    n_ch = len(acq.sv)
+    chunks, upload = ChunkCalls(), TimedUpload()
+    tracking.track_chunk, ts.upload_capture = chunks, upload
+    zero_launches()
+    try:
+        rec = stage("eph_segmented_s", lambda: rx.track_for_eph(
+            n_ms=EPH_MS, n_segments=SEGMENTS))
+    finally:
+        tracking.track_chunk, ts.upload_capture = chunks.real, upload.real
+    eph_counts = kernel_launches()
+    seg_ms = -(-EPH_MS // SEGMENTS)
+    want = (-(-(seg_ms + SEGMENT_HALO_MS) // 1000), 0, 0)
+    width = {int(c[2].ptr.shape[0]) for c in chunks.calls}
+    if eph_counts != want or len(upload.walls) != 1 \
+            or width != {n_ch * SEGMENTS}:
+        raise AssertionError(
+            f"segmented eph stage: launches (track_chunk, windows bank, "
+            f"fetching bank) {eph_counts}, expected {want}; uploads "
+            f"{len(upload.walls)}; channels per launch {width}")
+    resident = chunks.calls[0][0]
+    if any(c[0] is not resident or c[1] != 0 for c in chunks.calls) \
+            or resident.shape[0] != main["src"].n_samples:
+        raise AssertionError("a chunk did not read the resident capture "
+                             "from sample 0")
+
+    # the last chunk again from the state the kernel left after the one
+    # before: kernel against plain, every field and the end state
+    raw, start, st, chips, spec, nb = chunks.calls[-1]
+    lo, hi = int(st.ptr.min()), int(st.ptr.max()) + nb * S
+    if hi <= PAIR_2_31:
+        raise AssertionError(f"the last chunk ends at pair {hi}, before 2^31")
+    out, end = tc.track_chunk(raw, start, st, chips, spec, nb)
+    ref, end_ref = tc.track_chunk_reference(raw, start, st, chips, spec, nb)
+    tc.raise_on_fault(out)
+    tc.raise_on_fault(ref)
+    differs = differing_fields(out, ref) + _end_state_differs(end, end_ref)
+    if differs or int(out["absolute_sample"].max()) <= PAIR_2_31:
+        raise AssertionError(f"last chunk past pair 2^31: kernel and plain "
+                             f"differ in {differs}")
+    last = dict(blocks=nb, first_pointer=lo, last_pointer=int(st.ptr.max()),
+                last_block_end=int(out["absolute_sample"].max()),
+                reads_past_pair_2_31=True, bitwise=True,
+                max_abs_err=float((out["corr"] - ref["corr"]).abs().max()))
+    del out, ref, end, end_ref
+
+    # B1 at this width: one 1000-block chunk from the segments' start
+    raw, start, st0, chips, spec, nb = chunks.calls[0]
+    out, _ = tc.track_chunk(raw, start, st0, chips, spec, nb)
+    n_out = sum(out[f].numel() * out[f].element_size() for f in out)
+    b1 = dict(channels=int(st0.ptr.shape[0]), blocks=nb,
+              cluster=tc.cluster_size(
+                  int(st0.ptr.shape[0]),
+                  torch.cuda.get_device_properties(dev).multi_processor_count),
+              kernel_ms=timed_ms(lambda: tc.track_chunk(
+                  raw, start, st0, chips, spec, nb), 3))
+    b1.update(bound_ms(
+        union_samples(st0.ptr, out["absolute_sample"][-1])
+        * raw.element_size() * 2 + chips.numel() * 4 + n_out,
+        int(out["num_sample"].sum()) * (OPS_PER_SAMPLE
+                                        + OPS_PER_TAP * len(spec.taps))))
+    del chunks, raw, resident, out, st, st0
+    torch.cuda.empty_cache()
+
+    # the stitched record against phase 3's serial one
+    if rec.corr.shape != serial.corr.shape or \
+            rec.corr.shape != (EPH_MS, n_ch, 3, 2):
+        raise AssertionError(f"segmented record {rec.corr.shape}, serial "
+                             f"{serial.corr.shape}")
+    agree = float(np.mean(np.sign(rec.p_i[300:]) == np.sign(serial.p_i[300:])))
+    dcarr = np.abs(rec.carr_freq[300:] - serial.carr_freq[300:])
+    dchips = float(np.max(np.abs(rec.absolute_sample[300:]
+                                 - serial.absolute_sample[300:]))
+                   * cfg.signal.code_freq_basis / FS)
+    # every segment locked: prompt over quadrature in each one's rows
+    power = [float(np.abs(rec.p_i[a:b]).mean() / np.abs(rec.p_q[a:b]).mean())
+             for a, b in ((max(q * seg_ms, 300), (q + 1) * seg_ms)
+                          for q in range(SEGMENTS))]
+    against = dict(prompt_sign_agreement=agree,
+                   carr_freq_median_hz=float(np.median(dcarr)),
+                   carr_freq_p99_hz=float(np.percentile(dcarr, 99)),
+                   absolute_sample_max_chips=dchips,
+                   absolute_sample_bound_chips=SEG_ALIGN_CHIPS,
+                   prompt_over_quadrature_min=min(power))
+    if not (agree > 0.999 and against["carr_freq_median_hz"] < 1.0
+            and against["carr_freq_p99_hz"] < 10.0
+            and dchips < SEG_ALIGN_CHIPS and min(power) > 3.0):
+        raise AssertionError(f"segmented record against the serial one: "
+                             f"{against}")
+
+    zero_launches()
+    eph, _ = stage("decode_s",
+                   lambda: rx.decode(start_offset_ms=DECODE_OFFSET_MS))
+    usable = stage("usable_svs_s", rx.usable_svs)
+    _, nav = stage("ct_wls_s", lambda: rx.ct_position(n_ms=CT_MS,
+                                                      init_pos_ecef=usr))
+    ct_counts = kernel_launches()
+    if [int(p) for p in usable] != main["usable"] \
+            or len(usable) != len(PRNS):
+        raise AssertionError(f"usable SVs {usable}, phase 3 had "
+                             f"{main['usable']}")
+    row_fields = ("sfb", "sfb1", "updatetime_ms")
+    rows_equal = True
+    for p in usable:
+        a, b = dataclasses.asdict(eph[p]), dataclasses.asdict(main["eph"][p])
+        diff = [k for k in a if k not in row_fields and a[k] != b[k]]
+        if diff:
+            raise AssertionError(f"PRN {p}: ephemeris fields {diff} differ "
+                                 "from the serial stage's")
+        rows_equal &= all(a[k] == b[k] for k in row_fields)
+    err = np.linalg.norm(nav.usr_pos - usr, axis=1)
+    med = float(np.median(err)) if len(err) else float("inf")
+    if not np.all(np.isfinite(nav.usr_pos)) or med >= WLS_GATE_M \
+            or ct_counts != (-(-CT_MS // 1000), 0, 0):
+        raise AssertionError(f"after the segmented stage: WLS median "
+                             f"{med:.1f} m, CT launches {ct_counts}")
+    res = dict(
+        segments=SEGMENTS, halo_ms=SEGMENT_HALO_MS, seg_ms=seg_ms,
+        channels=n_ch * SEGMENTS, stages=stages, upload_s=upload.walls[0],
+        upload_gb=main["src"].n_samples * 2 / 1e9,
+        serial_eph_tracking_s=main["eph_tracking_s"],
+        track_chunk_launches=eph_counts[0],
+        correlator_bank_windows_launches=eph_counts[1],
+        correlator_bank_launches=eph_counts[2], last_chunk=last,
+        track_chunk_64=b1, against_serial=against,
+        usable_svs=[int(p) for p in usable], ephemerides_equal_phase3=True,
+        subframe_rows_equal_phase3=bool(rows_equal),
+        ct_track_chunk_launches=ct_counts[0], wls_epochs=int(len(err)),
+        wls_median_err_m=med)
+    evidence("time_segments", **res)
+    return res
+
+
+def phase_cli(dev: torch.device, workdir: str, ephs: list) -> dict:
+    """The command line as a user runs it: a CLI_MS capture of the e2e
+    scenario synthesized on the card straight into a file, then
+    `python -m gps_sdr_tpu_torch.cli <file> --preset opensky --ct-ms
+    CLI_CT_ROWS --vt-ms CLI_VT_MS --no-plots --out <dir>` in a process of its
+    own.  Gates: exit code 0, the 8 PRNs in its acquisition table, ≥ 4
+    usable SVs, WLS and VT medians < 120 m as it prints them and from its
+    `.mat` files against the receiver's position, and every file of the
+    `.mat` set read back through io/matref.  The command prints its own
+    kernel launches."""
+    cfg = dataclasses.replace(cfg_e2e(), file=FileConfig(name="cli",
+                                                         skip_ms=0))
+    # what the command runs under: the preset's file and solution settings,
+    # the e2e front end (the same 58 MHz and IF as the preset's); the
+    # receiver sits at the preset's configured truth (102 m from the e2e
+    # scenario's position), so the medians the command prints are errors
+    ocfg = dataclasses.replace(opensky_config(), signal=cfg.signal)
+    usr = llh2xyz(np.asarray(ocfg.solu.truth_llh)).numpy()
+    gs = GeometrySignal(
+        cfg, [GeometrySV(prn=p, eph=e, amplitude=AMP_SCALE * a)
+              for p, e, a in zip(PRNS, ephs, AMPS)],
+        usr, CLI_TOW0, clk_bias_s=CLK_BIAS_S, clk_drift_sps=CLK_DRIFT_SPS,
+        atmosphere=True, iono_alpha=cfg.cmn.iono_alpha,
+        iono_beta=cfg.cmn.iono_beta, doy=cfg.cmn.day_of_year, device=dev)
+    path = os.path.join(workdir, "capture.bin")
+    t0 = time.perf_counter()
+    out = np.memmap(path, dtype=np.int8, mode="w+",
+                    shape=(2 * CLI_MS * cfg.signal.samples_per_ms,))
+    gs.synthesize(CLI_MS, noise_std=NOISE_STD, seed=13, out=out)
+    out.flush()
+    del out
+    synth_s = time.perf_counter() - t0
+    res_dir = os.path.join(workdir, "out")
+    argv = [sys.executable, "-m", "gps_sdr_tpu_torch.cli", path, "--preset",
+            "opensky", "--ct-ms", str(CLI_CT_ROWS), "--vt-ms", str(CLI_VT_MS),
+            "--no-plots", "--out", res_dir]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, timeout=900,
+                       cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"the command exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    lines = r.stdout.splitlines()
+    head = lines.index(
+        "PRN   SNR[dB]  Doppler[Hz]  FineDoppler[Hz]  CodeDelay[smp]")
+    acquired = [int(l.split()[0]) for l in lines[head + 1:head + 1 + len(PRNS)]]
+    usable = re.search(r"usable SVs \(complete healthy ephemeris\): "
+                       r"\[([\d, ]*)\]", r.stdout)
+    usable = [int(p) for p in usable.group(1).split(",")] if usable else []
+    printed = dict(
+        wls=re.search(r"WLS: (\d+) epochs, median error vs configured truth "
+                      r"([\d.]+) m", r.stdout),
+        vt=re.search(r"VT/EKF: (\d+) ms, median error ([\d.]+) m", r.stdout),
+        launches=re.search(r"kernel launches: track_chunk (\d+), "
+                           r"correlator_bank_windows (\d+), "
+                           r"correlator_bank (\d+)", r.stdout))
+    if sorted(acquired) != sorted(PRNS) or len(usable) < 4 \
+            or not all(printed.values()):
+        raise AssertionError(f"the command printed:\n{r.stdout}")
+    launches = [int(x) for x in printed["launches"].groups()]
+
+    # the .mat set, read back through io/matref
+    name, skip = ocfg.file.name, ocfg.file.skip_ms
+    bps, S = ocfg.file.bytes_per_sample, ocfg.signal.samples_per_ms
+    mat = os.path.join(res_dir, "mat")
+    want = sorted([f"nAcquired_{name}_{skip}.mat", f"eph_{name}.mat",
+                   f"sbf_{name}.mat", f"tckRstCT_10ms_{name}.mat",
+                   f"navSolCT_10ms_{name}.mat", f"tckRstVT_{name}_updated.mat",
+                   f"navSolVT_{name}_updated.mat"])
+    if sorted(os.listdir(mat)) != want:
+        raise AssertionError(f"the command wrote {sorted(os.listdir(mat))}, "
+                             f"expected {want}")
+    f = lambda n: os.path.join(mat, n)
+    na = matref.load_nacquired(f(f"nAcquired_{name}_{skip}.mat"))
+    eph = matref.load_eph(f(f"eph_{name}.mat"))
+    nav1 = matref.load_sbf(f(f"sbf_{name}.mat"))["nav1"]
+    ct_rec, pdi = matref.load_tck_records(f(f"tckRstCT_10ms_{name}.mat"),
+                                          usable, bytes_per_sample=bps,
+                                          samples_per_ms=S)
+    nav = matref.load_navsol(f(f"navSolCT_10ms_{name}.mat"))
+    vt_trk, _ = matref.load_vt_records(f(f"tckRstVT_{name}_updated.mat"),
+                                       usable, bytes_per_sample=bps)
+    vt = matref.load_navsol_vt(f(f"navSolVT_{name}_updated.mat"))
+    wls_err = np.linalg.norm(nav.usr_pos - usr, axis=1)
+    vt_err = np.linalg.norm(vt["usrPos"] - usr, axis=1)
+    res = dict(
+        command=" ".join(["python -m gps_sdr_tpu_torch.cli", "<capture>"]
+                         + argv[4:-1] + ["<dir>"]),
+        capture_ms=CLI_MS, capture_gb=os.path.getsize(path) / 1e9,
+        synth_to_file_s=synth_s, command_s=wall, rc=r.returncode,
+        acquired=acquired, usable_svs=usable,
+        printed_wls_median_m=float(printed["wls"].group(2)),
+        printed_vt_median_m=float(printed["vt"].group(2)),
+        wls_epochs=int(len(wls_err)), wls_median_err_m=float(
+            np.median(wls_err)), vt_ms=int(vt_err.shape[0]),
+        vt_median_err_m=float(np.median(vt_err)),
+        mat_files=want, ct_rows=int(ct_rec.corr.shape[0]),
+        ct_pdi_ms=sorted(set(int(x) for x in np.unique(pdi))),
+        eph_decoded=sorted(int(p) for p, e in eph.items() if e.tow),
+        nacquired_sv=[int(x) for x in na["sv"]],
+        vt_record_rows=int(vt_trk.corr.shape[0]),
+        launches=dict(track_chunk=launches[0],
+                      correlator_bank_windows=launches[1],
+                      correlator_bank=launches[2]))
+    if not (res["wls_median_err_m"] < WLS_GATE_M
+            and res["vt_median_err_m"] < WLS_GATE_M
+            and res["printed_wls_median_m"] < WLS_GATE_M
+            and res["printed_vt_median_m"] < WLS_GATE_M
+            and set(usable) <= set(nav1)
+            and res["nacquired_sv"] == usable
+            and res["vt_record_rows"] == CLI_VT_MS
+            and res["ct_rows"] == CLI_CT_ROWS and min(launches) > 0):
+        raise AssertionError(f"the command's results: {res}")
+    evidence("cli", **res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs a GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1567,13 +1912,18 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     workdirs = [tempfile.mkdtemp(prefix="chip_smoke_",
                                  dir=os.path.join(ROOT, "build"))
-                for _ in range(3)]
+                for _ in range(5)]
     try:
         main_res, main_out = phase_main_path(dev, workdirs[0],
                                              "--profile-vt" in sys.argv[1:])
         ref_res = phase_reference_schedules(dev, workdirs[1], main_out)
         if "--ref-1000" in sys.argv[1:]:
             reference_schedule_1000(dev, workdirs[2], main_out)
+        seg_res = phase_time_segments(dev, workdirs[3], main_out)
+        # the 4.76 GB capture goes before the command line's is made
+        del main_out
+        gc.collect()
+        cli_res = phase_cli(dev, workdirs[4], visible_constellation(len(PRNS)))
     finally:
         for d in workdirs:
             shutil.rmtree(d, ignore_errors=True)
@@ -1585,10 +1935,13 @@ def main() -> int:
              share=head["kernel_ms"] * 1e-3
              * main_res["correlator_bank_launches"]
              / main_res["stages"]["vt_ekf_s"])
+    evidence("script", wall_s=time.perf_counter() - t_start)
     # no single PyTorch call computes any of the three: library_ms is null.
     # `launches` of a kernel is the count over the path that runs it: the
     # 1 ms scalar path and the VT path of phase 3, the 10 ms schedules of
-    # phase 4
+    # phase 4; `launches_by_path` adds the time-segmented eph stage and the
+    # command line (counted by the command's own process)
+    cli_launches = cli_res["launches"]
     print(json.dumps({"kernels": [{
         "name": "track_chunk", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/track_chunk.cu",
@@ -1598,7 +1951,13 @@ def main() -> int:
                            kvp["pos_multicorr"]["corr_abs"]),
         "ms": kvp["epl"]["kernel_ms"], "plain_ms": kvp["epl"]["plain_ms"],
         "bound_ms": kvp["epl"]["bound_ms"],
-        "bound_by": kvp["epl"]["bound_by"], "library_ms": None}, {
+        "bound_by": kvp["epl"]["bound_by"], "library_ms": None,
+        "launches_by_path": {
+            "main_path": main_res["track_chunk_launches"],
+            "reference_schedules": ref_res["track_chunk_launches"],
+            "time_segments": seg_res["track_chunk_launches"],
+            "cli": cli_launches["track_chunk"]},
+        "time_segments_64ch": seg_res["track_chunk_64"]}, {
         "name": "correlator_bank", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/corr_bank.cu",
         "replaces": "gps_sdr_tpu/ops/pallas_track.py:428",
@@ -1606,7 +1965,9 @@ def main() -> int:
         "max_abs_err": bank["max_abs_err"],
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "launches_by_path": {
+            "main_path": main_res["correlator_bank_launches"],
+            "cli": cli_launches["correlator_bank"]}}, {
         "name": "correlator_bank_windows", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/corr_bank.cu",
         "replaces": "gps_sdr_tpu/ops/pallas_correlator.py:122",
@@ -1614,7 +1975,9 @@ def main() -> int:
         "max_abs_err": win["max_abs_err"],
         "ms": whead["kernel_ms"], "plain_ms": whead["plain_ms"],
         "bound_ms": whead["bound_ms"], "bound_by": whead["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None, "launches_by_path": {
+            "reference_schedules": ref_res["correlator_bank_windows_launches"],
+            "cli": cli_launches["correlator_bank_windows"]}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

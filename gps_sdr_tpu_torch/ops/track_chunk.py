@@ -190,7 +190,9 @@ def correlate_blocks(x_all: torch.Tensor, off: torch.Tensor,
     """One coherent block of every channel, plain PyTorch: the "nco" branch
     of the JAX package's `tracking.correlate_block` batched over channels.
 
-    x_all (L, 2) float32 chunk; per channel (N,): `off` window start in the
+    x_all (L, 2) chunk, float32 or the raw int8/int16 pairs (each window is
+    cast after it is cut, exactly: a whole-capture buffer is never cast as a
+    whole); per channel (N,): `off` window start in the
     chunk and `num` block length (int64), `rem` code phase [chips] and
     `step` chips per sample (float64), `phase` and `carr_fp` Q32 carrier
     words (int64 holding int32 values); chips (N, 1023) float32; tap_fp
@@ -203,7 +205,7 @@ def correlate_blocks(x_all: torch.Tensor, off: torch.Tensor,
     blk = grid.k.shape[0]
     idx = torch.clamp(off[:, None] + grid.k[None, :], 0, x_all.shape[0] - 1)
     mask = (grid.k[None, :] < num[:, None])[..., None]
-    x = torch.where(mask, x_all[idx], 0.0)                     # (N, blk, 2)
+    x = torch.where(mask, x_all[idx].to(f32), 0.0)             # (N, blk, 2)
     if remove_dc:
         # integer sums are exact in float64: the mean is order-free
         dc = (x.sum(dim=1, dtype=f64) / num.to(f64)[:, None]).to(f32)
@@ -330,8 +332,9 @@ def track_chunk_reference(raw: torch.Tensor, chunk_start: int, state,
                           n_steps: int):
     """Plain PyTorch version: `n_steps` blocks × all channels.
 
-    raw         (L, 2) int8/int16 IQ of the chunk (cast here, as on the
-                device); chunk_start the absolute sample of raw[0]
+    raw         (L, 2) int8/int16 IQ of the chunk (each block window cast
+                here, as on the device) or of the whole capture;
+                chunk_start the absolute sample of raw[0]
     state       TrackState-like NamedTuple of (N,) tensors
     chips       (N, 1023) float32 ±1 codes
     Returns (records, new_state): records are (T, N, …) tensors with the
@@ -340,15 +343,14 @@ def track_chunk_reference(raw: torch.Tensor, chunk_start: int, state,
     whose block window left the chunk (0 when none did).
     """
     dev = raw.device
-    x_all = raw.to(torch.float32)
-    L = x_all.shape[0]
+    L = raw.shape[0]
     n = state.ptr.shape[0]
     tap_fp = torch.as_tensor(spec.tap_fp(), device=dev)
     grid = BlockGrid.make(spec.blk, dev)
     k = LoopConsts.make(spec, dev)
 
     def bank(b: BlockNCO) -> torch.Tensor:
-        return correlate_blocks(x_all, b.ptr - chunk_start, b.num,
+        return correlate_blocks(raw, b.ptr - chunk_start, b.num,
                                 b.rem_chip, b.step, b.phase, b.carr_fp,
                                 chips, tap_fp, spec.remove_dc, grid)
 

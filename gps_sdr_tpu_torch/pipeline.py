@@ -19,6 +19,7 @@ import hashlib
 import os
 import pickle
 import pickletools
+import re
 import tempfile
 from typing import Dict, Optional
 
@@ -31,6 +32,7 @@ from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.geo.coords import llh2xyz
 from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris
 from gps_sdr_tpu_torch.io.ifdata import IFSampleSource
+from gps_sdr_tpu_torch.parallel.time_segments import run_tracking_segmented
 from gps_sdr_tpu_torch.receiver.ct import NavSolutions, run_ct_positioning
 from gps_sdr_tpu_torch.receiver.ct_legacy import run_ct_positioning_kf
 from gps_sdr_tpu_torch.receiver.vt import (VTParams, init_vt_state,
@@ -44,6 +46,9 @@ from gps_sdr_tpu_torch.utils.metrics import cn0_series
 # written ahead of every pickle the Receiver saves; a pickle without it was
 # not written by this package and is not unpickled
 PICKLE_TAG = b"gps_sdr_tpu_torch artifact pickle 1\n"
+# pull-in halo of each segment of a time-segmented eph stage (the JAX
+# package's run_tracking_segmented default, which its Receiver uses)
+SEGMENT_HALO_MS = 400
 
 
 def detect_bit_transition(p_i: np.ndarray, min_index: int = 600) -> int:
@@ -99,6 +104,7 @@ class Receiver:
     Stage artifacts (mirroring SDR_main.m's .mat files):
       acquired_{name}_{skip}.npz    Acquired{sv,SNR,Doppler,codedelay,fineFreq}
       tckeph_{name}.npz             per-ms tracking records for nav decode
+      tckeph_seg{D}_{halo}_{name}.npz   the same tracked in D time segments
       tckeph_ref_{name}_{n1}_{n10}_{min}.npz   the same from the reference's
                                     3-phase schedule (its own stem: a
                                     record is never taken for the other
@@ -116,7 +122,8 @@ class Receiver:
     same stems, and the untagged ones of the port's first versions) and
     names the package that wrote it, before unpickling anything.
     `decode` and `countinx` read the eph record on disk whichever schedule
-    wrote it, and track only when there is none.
+    wrote it (serial, time-segmented or the reference's), and track only
+    when there is none.
     """
 
     def __init__(self, cfg: ReceiverConfig, source: IFSampleSource,
@@ -199,25 +206,45 @@ class Receiver:
         return self._acq
 
     def track_for_eph(self, n_ms: Optional[int] = None,
-                      chunk_ms: int = 1000) -> TrackRecords:
+                      chunk_ms: int = 1000,
+                      n_segments: int = 1) -> TrackRecords:
         """Stage 2 (SDR_main.m:38): 1 ms E/P/L tracking long enough to
-        decode the ephemerides (≥ ~31 s of bits)."""
+        decode the ephemerides (≥ ~31 s of bits).
+
+        `n_segments > 1` tracks with overlap-save time parallelism
+        (`parallel/time_segments`): D segments with a halo of
+        `SEGMENT_HALO_MS` each, (channel × segment) as one batch over the
+        capture held on the device.  Its record has a stem of its own,
+        `tckeph_seg{D}_{halo}_{name}.npz` (the JAX package writes it under
+        the serial stem), so a later Receiver never takes one schedule's
+        record for the other's."""
         if self._eph_records is not None:
             return self._eph_records
-        stem = f"tckeph_{self.cfg.file.name}.npz"
+        stem = (f"tckeph_{self.cfg.file.name}.npz" if n_segments == 1 else
+                self._seg_stem(n_segments, SEGMENT_HALO_MS))
         if self._have(stem):
             self._eph_records = self._load_records(stem)
             return self._eph_records
         acq = self.acquisition()
         n_ms = n_ms or (self.cfg.track.ms_eph_1ms + self.cfg.track.ms_eph_10ms)
-        state = init_track_state(self.cfg, acq.code_delay, acq.fine_freq_hz,
-                                 self.device)
-        rec, _ = run_tracking(self.source, self.cfg, list(acq.sv), state,
-                              TrackParams.epl(self.cfg), n_ms,
-                              chunk_ms=chunk_ms)
+        params = TrackParams.epl(self.cfg)
+        if n_segments > 1:
+            rec = run_tracking_segmented(
+                self.source, self.cfg, list(acq.sv), acq.code_delay,
+                acq.fine_freq_hz, params, n_ms, n_segments=n_segments,
+                halo_ms=SEGMENT_HALO_MS, chunk_ms=chunk_ms,
+                device=self.device)
+        else:
+            state = init_track_state(self.cfg, acq.code_delay,
+                                     acq.fine_freq_hz, self.device)
+            rec, _ = run_tracking(self.source, self.cfg, list(acq.sv), state,
+                                  params, n_ms, chunk_ms=chunk_ms)
         self._eph_records = rec
         self._save_records(stem, rec)
         return rec
+
+    def _seg_stem(self, n_segments: int, halo_ms: int) -> str:
+        return f"tckeph_seg{n_segments}_{halo_ms}_{self.cfg.file.name}.npz"
 
     def track_for_eph_reference(self, chunk_ms: int = 1000,
                                 min_transition_index: int = 600
@@ -317,25 +344,31 @@ class Receiver:
     def _decode_records(self) -> TrackRecords:
         """The eph record `decode` and `countinx` read: this Receiver's
         own, else the one on disk, whichever schedule wrote it
-        (`tckeph_{name}.npz` or `tckeph_ref_…`); the plain schedule is
-        tracked only when there is none.  Two records on disk and none
-        built here is ambiguous and raises."""
+        (`tckeph_{name}.npz`, `tckeph_seg{D}_{halo}_{name}.npz` or
+        `tckeph_ref_…`); the plain schedule is tracked only when there is
+        none.  Two records on disk and none built here is ambiguous and
+        raises."""
         if self._eph_records is not None:
             return self._eph_records
         stems = [s for s in [f"tckeph_{self.cfg.file.name}.npz"]
                  if self._have(s)]
         if self.dir:
-            prefix = self._ref_prefix()
-            stems += sorted(
-                os.path.basename(p) for p in glob.glob(
-                    os.path.join(glob.escape(self.dir), prefix + "*.npz"))
-                if os.path.basename(p)[len(prefix):-4].isdigit())
+            def on_disk(prefix, suffix, key):
+                found = (os.path.basename(p) for p in glob.glob(os.path.join(
+                    glob.escape(self.dir), glob.escape(prefix) + "*"
+                    + glob.escape(suffix))))
+                return sorted(f for f in found
+                              if key(f[len(prefix):len(f) - len(suffix)]))
+            stems += on_disk("tckeph_seg", f"_{self.cfg.file.name}.npz",
+                             lambda k: re.fullmatch(r"\d+_\d+", k))
+            stems += on_disk(self._ref_prefix(), ".npz", str.isdigit)
         if len(stems) > 1:
             raise RuntimeError(
                 f"{self.dir} holds eph records of more than one schedule "
-                f"({', '.join(stems)}) and this Receiver built neither: call "
-                "track_for_eph() or track_for_eph_reference() first to say "
-                "which one to decode")
+                f"({', '.join(stems)}) and this Receiver built none of them: "
+                "call track_for_eph() (with the n_segments that wrote the "
+                "record) or track_for_eph_reference() first to say which "
+                "one to decode")
         if stems:
             self._eph_records = self._load_records(stems[0])
             return self._eph_records
@@ -562,11 +595,15 @@ class Receiver:
             return self._load_pickle(stem)
         eph, sbf = self.decode()
         pos_svs = self.usable_svs()
-        if init_pos_ecef is None:
-            init_pos_ecef = llh2xyz(np.asarray(cfg.solu.truth_llh)).numpy()
+        # the caller's start position, None included, so that the CT stage
+        # is found under the key it was written with (the JAX package
+        # resolves the default first and tracks CT again under a hashed
+        # key); the default is resolved for this stage's own use after
         ct_rec, ct_nav = self.ct_position(n_ms=ct_n_ms,
                                           init_pos_ecef=init_pos_ecef,
                                           chunk_ms=chunk_ms)
+        if init_pos_ecef is None:
+            init_pos_ecef = llh2xyz(np.asarray(cfg.solu.truth_llh)).numpy()
 
         # warm-start PVT from the CT epoch at skiptime_vt
         epoch0 = cfg.file.skiptime_vt_ms // cfg.solu.nav_sol_period_ms - 1

@@ -24,7 +24,7 @@ offset quirks) follows the reference:
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -295,7 +295,9 @@ def track_scan(raw: torch.Tensor, chunk_start: int, state: TrackState,
 
 def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
                  state: TrackState, params: TrackParams, n_ms: int,
-                 chunk_ms: int = 1000) -> Tuple[TrackRecords, TrackState]:
+                 chunk_ms: int = 1000,
+                 resident: Optional[torch.Tensor] = None
+                 ) -> Tuple[TrackRecords, TrackState]:
     """Track `n_ms` of signal ms from `state` (on its device), chunk by
     chunk of `chunk_ms`: one `track_chunk` call per chunk for coherent
     blocks of up to 2 ms, `track_scan` for longer ones
@@ -305,6 +307,12 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
     one (ChunkPrefetcher); the prefetch is sized from the real fetch
     (pointer spread + the chunk's full window + 2·S of drift margin on
     each side), so it is served without a second read.
+
+    `resident`: the whole capture already on the state's device
+    (`io.ifdata.upload_capture`).  Every chunk then reads it in place, from
+    chunk_start 0, with no read, staging or gather: the route for channels
+    far apart in the capture (time-segmented tracking), where the span from
+    the first pointer to the last is nearly the whole capture.
     """
     if len(prns) == 0:
         raise ValueError("no channels to track (empty PRN list)")
@@ -317,29 +325,39 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
         raise ValueError(
             f"capture too short: tracking {n_ms} ms needs ~{need} samples, "
             f"file has {source.n_samples}")
+    if resident is not None and (resident.device != device
+                                 or resident.shape[0] != source.n_samples):
+        raise ValueError(
+            f"resident capture {tuple(resident.shape)} on {resident.device} "
+            f"is not the {source.n_samples}-sample capture on {device}")
     n_blocks_total = n_ms // params.pdi_ms
     blocks_per_chunk = max(1, chunk_ms // params.pdi_ms)
     tracker = track_scan if params.pdi_ms > 2 else track_chunk
-    prefetcher = ChunkPrefetcher(source.read_iq_values)
-    stager = DeviceStager(device)
+    staged = resident is None
+    if staged:
+        prefetcher = ChunkPrefetcher(source.read_iq_values)
+        stager = DeviceStager(device)
     parts = []
     done = 0
     try:
         while done < n_blocks_total:
             nb = min(blocks_per_chunk, n_blocks_total - done)
-            ptrs = state.ptr.cpu()
-            ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
-            length = (ptr_max - ptr_min) + spec.chunk_samples(nb)
-            raw = stager.stage(prefetcher.fetch(ptr_min, length))
-            rec, state = tracker(raw, ptr_min, state, chips, spec, nb)
-            nb_next = min(blocks_per_chunk, n_blocks_total - done - nb)
-            if nb_next > 0:
-                # pointers advance ~nb·pdi·S with tens of samples of
-                # code-Doppler drift; 2·S of margin each side covers it
-                prefetcher.prefetch(
-                    ptr_min + nb * params.pdi_ms * S - 2 * S,
-                    (ptr_max - ptr_min) + spec.chunk_samples(nb_next)
-                    + 4 * S)
+            if not staged:
+                rec, state = tracker(resident, 0, state, chips, spec, nb)
+            else:
+                ptrs = state.ptr.cpu()
+                ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
+                length = (ptr_max - ptr_min) + spec.chunk_samples(nb)
+                raw = stager.stage(prefetcher.fetch(ptr_min, length))
+                rec, state = tracker(raw, ptr_min, state, chips, spec, nb)
+                nb_next = min(blocks_per_chunk, n_blocks_total - done - nb)
+                if nb_next > 0:
+                    # pointers advance ~nb·pdi·S with tens of samples of
+                    # code-Doppler drift; 2·S of margin each side covers it
+                    prefetcher.prefetch(
+                        ptr_min + nb * params.pdi_ms * S - 2 * S,
+                        (ptr_max - ptr_min) + spec.chunk_samples(nb_next)
+                        + 4 * S)
             raise_on_fault(rec)
             parts.append(TrackRecords(
                 **{f: rec[f].cpu().numpy() for f in _REC_FIELDS},
@@ -347,5 +365,6 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
                 i_late=params.i_late))
             done += nb
     finally:
-        prefetcher.close()
+        if staged:
+            prefetcher.close()
     return TrackRecords.concatenate(parts), state

@@ -34,7 +34,7 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1) if " " in out.stdout.strip() \
         else (out.stdout.strip(), "")
-    assert int(n) >= 36, out.stdout
+    assert int(n) >= 39, out.stdout
     assert bad == "", f"port pulled in {bad}"
 
 
@@ -45,10 +45,12 @@ def test_port_imports_without_jax():
     "gps_sdr_tpu_torch.positioning.relpr", "gps_sdr_tpu_torch.io.matref",
     "gps_sdr_tpu_torch.analysis", "gps_sdr_tpu_torch.analysis.acf",
     "gps_sdr_tpu_torch.analysis.multipath",
-    "gps_sdr_tpu_torch.analysis.plots"])
+    "gps_sdr_tpu_torch.analysis.plots", "gps_sdr_tpu_torch.cli",
+    "gps_sdr_tpu_torch.parallel", "gps_sdr_tpu_torch.parallel.time_segments"])
 def test_walk_reaches_module(module):
     """The walk above covers the modules of the later slices (vector
-    tracking; the legacy filter, `.mat` in and out, analysis)."""
+    tracking; the legacy filter, `.mat` in and out, analysis; the command
+    line and time-segmented tracking)."""
     import pkgutil
 
     import gps_sdr_tpu_torch
