@@ -76,6 +76,22 @@ Phases, each printing one line of evidence:
    its acquisition table, usable SVs, the WLS and VT medians against the
    scenario's truth from its `.mat` files, every file read back through
    io/matref, its wall time and its kernel launches (it prints them).
+7. Several processes (parallel/distributed.launch): a world of 2 ranks
+   (gloo; both on the one card, kernels built by phase 1 before any rank
+   starts) over phase 6's capture file at full width.  The `receiver` leg:
+   Receiver(mesh="auto") makes the command's calls, acquisition (16 PRNs a
+   rank) → track_for_eph_reference → decode → usable_svs → the switched
+   ct_position(3300) (WLS epochs reduced over the ranks) → vt_position(1000)
+   (one gather a ms), each rank's acquisition table, eph record,
+   ephemerides and CT record bit for bit the command's (its artifacts), the
+   fixes within 1e-6 m, VT within tests/test_mesh_pipeline.py's split of
+   the command's and bit for bit a single-process VT stage from the same CT
+   hand-off.  The `ingest` leg: the eph stage in 8 time segments, each rank
+   reading only its segments' byte range of the file, the gathered and
+   stitched record bit for bit the single-process segmented run (phase 5's
+   route).  Per rank: its kernel launches, stage times, VT ms a step, read
+   fraction.  One card shared by two ranks shows that the sharded path
+   works on the card, not how it scales.
 
 Receiver.report (the plots) is not run here: it needs matplotlib, which the
 GPU machine does not have (hence the command's --no-plots); the CPU tests
@@ -122,6 +138,7 @@ from gps_sdr_tpu_torch.io.synthetic import (GeometrySignal, GeometrySV,
 from gps_sdr_tpu_torch.ops import _build
 from gps_sdr_tpu_torch.ops import corr_bank as cb
 from gps_sdr_tpu_torch.ops import track_chunk as tc
+from gps_sdr_tpu_torch.parallel import distributed as pdist
 from gps_sdr_tpu_torch.parallel import time_segments as ts
 from gps_sdr_tpu_torch.pipeline import (SEGMENT_HALO_MS, Receiver,
                                         detect_bit_transition)
@@ -159,6 +176,8 @@ PAIR_2_31 = 2 ** 31      # the segments' last chunk reads past this pair
 # ~3.07 s, inside a CT record of CLI_CT_ROWS rows (10 ms each past the
 # pdi switch at row 1000 + countinx)
 CLI_MS, CLI_CT_ROWS, CLI_VT_MS = 47000, 3300, 1000
+# phase 7: ranks of the world over the command's capture
+RANKS = 2
 SCAN_BLOCKS, SCAN_LEAD_MS = 100, 80     # the both-trackers segment
 PRNS = (3, 7, 16, 22, 27, 1, 8, 30)
 AMPS = (3.0, 2.6, 2.8, 2.4, 2.7, 2.2, 3.2, 2.0)
@@ -1891,7 +1910,66 @@ def phase_cli(dev: torch.device, workdir: str, ephs: list) -> dict:
             and res["ct_rows"] == CLI_CT_ROWS and min(launches) > 0):
         raise AssertionError(f"the command's results: {res}")
     evidence("cli", **res)
-    return res
+    return res, dict(path=path, artifacts=os.path.join(res_dir, "artifacts"))
+
+
+def phase_multi_process(workdir: str, cli_files: dict) -> dict:
+    """A world of RANKS processes (gloo) over the command's capture at full
+    width, both on the one card: the `receiver` leg against the command's
+    own artifacts and the `ingest` leg against the single-process segmented
+    run (parallel/distributed.py says what each holds).  Gates: every
+    rank's legs ok, B1, B2 and B3 launched by every rank's Receiver, B1 by
+    every rank's ingest, each rank reading < 62 % of the file."""
+    cfg = opensky_config(cli_files["path"])   # as the command builds it
+    acq = np.load(os.path.join(
+        cli_files["artifacts"],
+        f"acquired_{cfg.file.name}_{cfg.file.skip_ms}.npz"))
+    t0 = time.perf_counter()
+    res = pdist.launch(
+        legs=("receiver", "ingest"), n_processes=RANKS, device=None,
+        timeout_s=600, work_dir=workdir, receiver=dict(
+            cfg=cfg, capture=cli_files["path"],
+            artifact_dir=os.path.join(workdir, "rx"),
+            ref_dir=cli_files["artifacts"], ct_kw=dict(n_ms=CLI_CT_ROWS),
+            vt_kw=dict(n_ms=CLI_VT_MS, ct_n_ms=CLI_CT_ROWS)),
+        ingest=dict(cfg=cfg, capture=cli_files["path"],
+                    prns=[int(p) for p in acq["sv"]],
+                    delays=acq["code_delay"], fine=acq["fine_freq_hz"],
+                    n_ms=EPH_MS, segments=SEGMENTS,
+                    halo_ms=SEGMENT_HALO_MS))
+    wall = time.perf_counter() - t0
+    ranks = []
+    for rank in range(RANKS):
+        r = res[rank]
+        rx, ing = r["receiver"], r["ingest"]
+        ranks.append(dict(
+            rank=rank, device=r["device"], device_name=r.get("device_name"),
+            receiver_ok=rx["ok"], launches=rx["launches"],
+            stage_s=rx["stage_s"], gathers=rx["gathers"],
+            vt_scan_ms_per_step=rx["vt_scan_ms_per_step"],
+            vt_stage_ms_per_ms=rx["vt_stage_ms_per_ms"], vt_step=rx["vt_step"],
+            channels=rx["channels"], acquired=rx["acquired"],
+            acquisition_equal=rx["acquisition_equal"],
+            eph_record_equal=rx["eph_record_equal"],
+            ephemerides_equal=rx["ephemerides_equal"],
+            ct_record_equal=rx["ct_record_equal"], wls=rx["wls"],
+            vt_vs_command=rx["vt_vs_reference"],
+            vt_vs_single_same_handoff=rx["vt_vs_single_same_handoff"],
+            receiver_leg_s=rx["wall_s"], ingest_ok=ing["ok"],
+            ingest_launches=ing["launches"], ingest_segments=ing["segments"],
+            read_fraction=ing["read_fraction"], read_s=ing["read_s"],
+            ingest_track_s=ing["track_s"], ingest_leg_s=ing["wall_s"]))
+    out = dict(ranks_n=RANKS, backend=res[0]["backend"], wall_s=wall,
+               ranks=ranks)
+    evidence("multi_process", **out)
+    for r in ranks:
+        if not (r["receiver_ok"] and r["ingest_ok"]
+                and min(r["launches"].values()) > 0
+                and r["ingest_launches"]["track_chunk"] > 0
+                and r["read_fraction"] < 0.62
+                and r["device"].startswith("cuda")):
+            raise AssertionError(f"phase 7, rank {r['rank']}: {r}")
+    return out
 
 
 def main() -> int:
@@ -1912,7 +1990,7 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     workdirs = [tempfile.mkdtemp(prefix="chip_smoke_",
                                  dir=os.path.join(ROOT, "build"))
-                for _ in range(5)]
+                for _ in range(6)]
     try:
         main_res, main_out = phase_main_path(dev, workdirs[0],
                                              "--profile-vt" in sys.argv[1:])
@@ -1923,7 +2001,12 @@ def main() -> int:
         # the 4.76 GB capture goes before the command line's is made
         del main_out
         gc.collect()
-        cli_res = phase_cli(dev, workdirs[4], visible_constellation(len(PRNS)))
+        cli_res, cli_files = phase_cli(dev, workdirs[4],
+                                       visible_constellation(len(PRNS)))
+        # the ranks share the card: the parent's cached blocks go first
+        gc.collect()
+        torch.cuda.empty_cache()
+        mp_res = phase_multi_process(workdirs[5], cli_files)
     finally:
         for d in workdirs:
             shutil.rmtree(d, ignore_errors=True)
@@ -1939,9 +2022,15 @@ def main() -> int:
     # no single PyTorch call computes any of the three: library_ms is null.
     # `launches` of a kernel is the count over the path that runs it: the
     # 1 ms scalar path and the VT path of phase 3, the 10 ms schedules of
-    # phase 4; `launches_by_path` adds the time-segmented eph stage and the
-    # command line (counted by the command's own process)
+    # phase 4; `launches_by_path` adds the time-segmented eph stage, the
+    # command line (counted by the command's own process) and each rank of
+    # phase 7 (counted by the rank's process: its Receiver, then its ingest)
     cli_launches = cli_res["launches"]
+
+    def ranks_of(name):
+        return [r["launches"][name] + r["ingest_launches"][name]
+                for r in mp_res["ranks"]]
+
     print(json.dumps({"kernels": [{
         "name": "track_chunk", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/track_chunk.cu",
@@ -1956,7 +2045,8 @@ def main() -> int:
             "main_path": main_res["track_chunk_launches"],
             "reference_schedules": ref_res["track_chunk_launches"],
             "time_segments": seg_res["track_chunk_launches"],
-            "cli": cli_launches["track_chunk"]},
+            "cli": cli_launches["track_chunk"],
+            "multi_process_ranks": ranks_of("track_chunk")},
         "time_segments_64ch": seg_res["track_chunk_64"]}, {
         "name": "correlator_bank", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/corr_bank.cu",
@@ -1967,7 +2057,8 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "launches_by_path": {
             "main_path": main_res["correlator_bank_launches"],
-            "cli": cli_launches["correlator_bank"]}}, {
+            "cli": cli_launches["correlator_bank"],
+            "multi_process_ranks": ranks_of("correlator_bank")}}, {
         "name": "correlator_bank_windows", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/corr_bank.cu",
         "replaces": "gps_sdr_tpu/ops/pallas_correlator.py:122",
@@ -1977,7 +2068,9 @@ def main() -> int:
         "bound_ms": whead["bound_ms"], "bound_by": whead["bound_by"],
         "library_ms": None, "launches_by_path": {
             "reference_schedules": ref_res["correlator_bank_windows_launches"],
-            "cli": cli_launches["correlator_bank_windows"]}}]}), flush=True)
+            "cli": cli_launches["correlator_bank_windows"],
+            "multi_process_ranks": ranks_of("correlator_bank_windows")}}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -147,9 +147,13 @@ def fine_doppler(long_signal: np.ndarray, prn: int, code_delay: int,
 
 def run_acquisition(source: IFSampleSource, cfg: ReceiverConfig,
                     prns: Optional[Sequence[int]] = None,
-                    device=None) -> AcquisitionResult:
+                    device=None, power_fn=None) -> AcquisitionResult:
     """Full acquisition stage on one capture (acquisition.m end to end),
-    on `device` (the card when None)."""
+    on `device` (the card when None).
+
+    `power_fn(blocks, carriers, code_fft)` overrides the grid computation
+    (`acquisition_power_grid`'s arguments and result; e.g. the PRN-sharded
+    grid of `parallel.acquisition.sharded_acquisition_power`)."""
     device = resolve_device(device)
     prns = list(prns if prns is not None else cfg.acq.prn_list)
     sig, acq = cfg.signal, cfg.acq
@@ -163,7 +167,7 @@ def run_acquisition(source: IFSampleSource, cfg: ReceiverConfig,
     code_fft = torch.as_tensor(
         np.fft.fft(sampled_codes(cfg, prns)).astype(np.complex64),
         device=device)
-    power = acquisition_power_grid(blocks, carriers, code_fft)
+    power = (power_fn or acquisition_power_grid)(blocks, carriers, code_fft)
     snr, fbin, delay = peak_statistics(power, cfg)
     del power
 

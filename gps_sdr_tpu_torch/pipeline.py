@@ -32,6 +32,7 @@ from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.geo.coords import llh2xyz
 from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris
 from gps_sdr_tpu_torch.io.ifdata import IFSampleSource
+from gps_sdr_tpu_torch.parallel.mesh import resolve_mesh
 from gps_sdr_tpu_torch.parallel.time_segments import run_tracking_segmented
 from gps_sdr_tpu_torch.receiver.ct import NavSolutions, run_ct_positioning
 from gps_sdr_tpu_torch.receiver.ct_legacy import run_ct_positioning_kf
@@ -99,7 +100,8 @@ def _atomic_write(path: str, write) -> None:
 
 class Receiver:
     """Staged receiver with artifact caching, on one device: the CUDA
-    card unless `device` says otherwise (`device="cpu"` for the CPU).
+    card unless `device` says otherwise (`device="cpu"` for the CPU); or,
+    with a mesh, one rank of a world of them, each on its own device.
 
     Stage artifacts (mirroring SDR_main.m's .mat files):
       acquired_{name}_{skip}.npz    Acquired{sv,SNR,Doppler,codedelay,fineFreq}
@@ -127,11 +129,24 @@ class Receiver:
     """
 
     def __init__(self, cfg: ReceiverConfig, source: IFSampleSource,
-                 artifact_dir: Optional[str] = None, device=None):
+                 artifact_dir: Optional[str] = None, device=None,
+                 mesh="auto"):
+        """`mesh`: "auto" (the default) is a mesh over the
+        `torch.distributed` world when one of more than one rank is
+        initialised (`parallel/mesh.resolve_mesh`), else None, a single
+        device; or a `parallel.mesh.Mesh`, or None.  With a mesh every rank
+        runs the same calls: acquisition shards the PRN axis, tracking and
+        vector tracking the channel axis (bit for bit the single-device
+        records), every WLS epoch reduces its normal equations over the
+        ranks (`parallel/`); every rank ends a stage holding the full
+        results, and rank 0 alone writes the artifacts while the others
+        wait.  The device defaults to the mesh's (the rank's card)."""
         self.cfg = cfg
         self.source = source
         self.dir = artifact_dir
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(mesh, device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       and device is None else resolve_device(device))
         if artifact_dir:
             os.makedirs(artifact_dir, exist_ok=True)
         self._acq: Optional[AcquisitionResult] = None
@@ -145,18 +160,38 @@ class Receiver:
 
     def _have(self, stem: str) -> bool:
         p = self._path(stem)
-        return p is not None and os.path.exists(p)
+        return self._agree(p is not None and os.path.exists(p))
+
+    def _agree(self, found):
+        """What rank 0 found on disk, on every rank (without a mesh,
+        `found`): what is there decides each rank's next step, and rank 0
+        may have written there before a slower rank looks."""
+        return found if self.mesh is None else self.mesh.broadcast(found)
+
+    def _writer(self) -> bool:
+        """Whether this process writes files: rank 0 of a mesh, or the one
+        process without."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _written(self) -> None:
+        """With a mesh, every rank waits here until rank 0 has written."""
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _write(self, stem: str, write) -> None:
+        if self.dir:
+            if self._writer():
+                _atomic_write(self._path(stem), write)
+            self._written()
 
     def _save_npz(self, stem: str, **arrays) -> None:
-        if self.dir:
-            _atomic_write(self._path(stem), lambda f: np.savez(f, **arrays))
+        self._write(stem, lambda f: np.savez(f, **arrays))
 
     def _save_pickle(self, stem: str, obj) -> None:
-        if self.dir:
-            def write(f):
-                f.write(PICKLE_TAG)
-                pickle.dump(obj, f)
-            _atomic_write(self._path(stem), write)
+        def write(f):
+            f.write(PICKLE_TAG)
+            pickle.dump(obj, f)
+        self._write(stem, write)
 
     def _load_pickle(self, stem: str):
         path = self._path(stem)
@@ -197,8 +232,13 @@ class Receiver:
                 sv=z["sv"], snr_db=z["snr_db"], doppler_hz=z["doppler_hz"],
                 code_delay=z["code_delay"], fine_freq_hz=z["fine_freq_hz"])
         else:
+            power_fn = None
+            if self.mesh is not None:
+                from gps_sdr_tpu_torch.parallel.acquisition import (
+                    sharded_acquisition_power)
+                power_fn = sharded_acquisition_power(self.mesh)
             self._acq = run_acquisition(self.source, self.cfg,
-                                        device=self.device)
+                                        device=self.device, power_fn=power_fn)
             a = self._acq
             self._save_npz(stem, sv=a.sv, snr_db=a.snr_db,
                            doppler_hz=a.doppler_hz, code_delay=a.code_delay,
@@ -238,7 +278,8 @@ class Receiver:
             state = init_track_state(self.cfg, acq.code_delay,
                                      acq.fine_freq_hz, self.device)
             rec, _ = run_tracking(self.source, self.cfg, list(acq.sv), state,
-                                  params, n_ms, chunk_ms=chunk_ms)
+                                  params, n_ms, chunk_ms=chunk_ms,
+                                  mesh=self.mesh)
         self._eph_records = rec
         self._save_records(stem, rec)
         return rec
@@ -292,7 +333,8 @@ class Receiver:
 
         # (a) 1 ms tracking → countinx per channel
         rec_a, _ = run_tracking(self.source, cfg, prns, fresh_state(),
-                                params1, n1, chunk_ms=chunk_ms)
+                                params1, n1, chunk_ms=chunk_ms,
+                                mesh=self.mesh)
         cnt = np.array([detect_bit_transition(
             rec_a.p_i[:, ch], min_index=min_transition_index)
             for ch in range(n_ch)])
@@ -300,7 +342,8 @@ class Receiver:
 
         # (b) re-track to the latest switch point
         rec_b, _ = run_tracking(self.source, cfg, prns, fresh_state(),
-                                params1, n1 + cnt_max, chunk_ms=chunk_ms)
+                                params1, n1 + cnt_max, chunk_ms=chunk_ms,
+                                mesh=self.mesh)
 
         # (c) 10 ms blocks, negated, from per-channel re-based pointers;
         # loop state resumed at each channel's switch row (countinx may be
@@ -314,7 +357,7 @@ class Receiver:
         rec_c, _ = run_tracking(
             self.source, cfg, prns, st_c,
             TrackParams.epl(cfg, pdi_ms=10, negate_iq=True), n10,
-            chunk_ms=chunk_ms)
+            chunk_ms=chunk_ms, mesh=self.mesh)
 
         # merge: per channel, its own (b) prefix + the ×10-replicated (c)
         # rows, edge-padded to the common length
@@ -362,6 +405,7 @@ class Receiver:
             stems += on_disk("tckeph_seg", f"_{self.cfg.file.name}.npz",
                              lambda k: re.fullmatch(r"\d+_\d+", k))
             stems += on_disk(self._ref_prefix(), ".npz", str.isdigit)
+        stems = self._agree(stems)
         if len(stems) > 1:
             raise RuntimeError(
                 f"{self.dir} holds eph records of more than one schedule "
@@ -480,7 +524,7 @@ class Receiver:
         params1 = mk(cfg)
         if pdi_switch_ms is None:
             rec, _ = run_tracking(self.source, cfg, pos_svs, state, params1,
-                                  n_ms, chunk_ms=chunk_ms)
+                                  n_ms, chunk_ms=chunk_ms, mesh=self.mesh)
             pdi_rows = 1
         else:
             cnt = np.asarray(countinx if countinx is not None
@@ -491,7 +535,7 @@ class Receiver:
                 raise ValueError(f"n_ms={n_ms} rows must exceed the last "
                                  f"pdi switch at row {sw_max}")
             rec1, _ = run_tracking(self.source, cfg, pos_svs, state, params1,
-                                   sw_max, chunk_ms=chunk_ms)
+                                   sw_max, chunk_ms=chunk_ms, mesh=self.mesh)
             st2 = state_from_records(rec1, sw - 1, acq.fine_freq_hz[chans],
                                      params1.dll_freq_sign,
                                      cfg.signal.code_freq_basis, self.device)
@@ -500,7 +544,7 @@ class Receiver:
             # most any channel's merge below consumes
             rec2, _ = run_tracking(self.source, cfg, pos_svs, st2,
                                    mk(cfg, pdi_ms=10), (n_ms - sw_min) * 10,
-                                   chunk_ms=chunk_ms)
+                                   chunk_ms=chunk_ms, mesh=self.mesh)
             merged = {f: np.stack(
                 [np.concatenate([getattr(rec1, f)[:sw[ch], ch],
                                  getattr(rec2, f)[:n_ms - sw[ch], ch]])
@@ -512,7 +556,8 @@ class Receiver:
             pdi_rows = np.where(np.arange(n_ms)[:, None] < sw[None, :], 1, 10)
         nav: NavSolutions = run_ct_positioning(rec, cfg, pos_svs, eph, sbf,
                                                init_pos_ecef,
-                                               pdi_ms_per_block=pdi_rows)
+                                               pdi_ms_per_block=pdi_rows,
+                                               mesh=self.mesh)
         self._save_records(stem_t, rec)
         self._save_pickle(stem_n, nav)
         return rec, nav
@@ -546,7 +591,7 @@ class Receiver:
                                  acq.fine_freq_hz[chans], self.device)
         rec, _ = run_tracking(self.source, cfg, pos_svs, state,
                               TrackParams.pos_epl(cfg), n_ms,
-                              chunk_ms=chunk_ms)
+                              chunk_ms=chunk_ms, mesh=self.mesh)
         nav = run_ct_positioning_kf(rec, cfg, pos_svs, eph, sbf,
                                     init_pos_ecef, epoch_ms=epoch_ms)
         self._save_records(stem_t, rec)
@@ -635,7 +680,7 @@ class Receiver:
                                      self.device)
         trk, sol, _ = run_vector_tracking(
             self.source, cfg, pos_svs, eph_struct, state, params, n_ms,
-            init_pos_ecef, chunk_ms=chunk_ms)
+            init_pos_ecef, chunk_ms=chunk_ms, mesh=self.mesh)
         self._save_pickle(stem, (trk, sol))
         return trk, sol
 
@@ -663,14 +708,29 @@ class Receiver:
         runs VT (solu.mode == 2 with cmn.vt_enable, SDR_main.m:73) and the
         VT stage has already run for `vt_kw` (its artifact is on disk), so
         a CT export never starts vector tracking by itself; True exports it
-        (running the stage if needed); False skips it."""
-        from gps_sdr_tpu_torch.io import matref
-
-        os.makedirs(out_dir, exist_ok=True)
+        (running the stage if needed); False skips it.  With a mesh every
+        rank runs the stages and rank 0 writes the files."""
         cfg = self.cfg
         eph, sbf = self.decode()
         pos_svs = self.usable_svs()
         acq = self.acquisition()
+        rec, nav = self.ct_position(**(ct_kw or {}))
+        if vt is None:
+            vt = (cfg.solu.mode == 2 and cfg.cmn.vt_enable
+                  and self._have(self._vt_stem(**(vt_kw or {}))))
+        vt_res = self.vt_position(**(vt_kw or {})) if vt else None
+        if self._writer():
+            self._write_mat(out_dir, eph, sbf, pos_svs, acq, rec, nav, vt_res,
+                            vt_kw)
+        self._written()
+
+    def _write_mat(self, out_dir, eph, sbf, pos_svs, acq, rec, nav, vt_res,
+                   vt_kw) -> None:
+        """The `.mat` files of `export_mat` from the stages' results."""
+        from gps_sdr_tpu_torch.io import matref
+
+        os.makedirs(out_dir, exist_ok=True)
+        cfg = self.cfg
         ch = [acq.channel_index(p) for p in pos_svs]
         name = cfg.file.name
         matref.save_nacquired_mat(
@@ -680,7 +740,6 @@ class Receiver:
         matref.save_eph_mat(
             os.path.join(out_dir, f"eph_{name}.mat"), eph, sbf=sbf,
             sbf_path=os.path.join(out_dir, f"sbf_{name}.mat"))
-        rec, nav = self.ct_position(**(ct_kw or {}))
         # each row's coherent time from the block sizes (the records carry
         # the per-channel pdi 1 → 10 ms switch when it is on); the C/N0
         # windows are normalized by it and the file tag is the final pdi,
@@ -696,11 +755,8 @@ class Receiver:
         matref.save_navsol_mat(
             os.path.join(out_dir, f"navSolCT_{tag}ms_{name}.mat"), nav)
 
-        if vt is None:
-            vt = (cfg.solu.mode == 2 and cfg.cmn.vt_enable
-                  and self._have(self._vt_stem(**(vt_kw or {}))))
-        if vt:
-            vt_trk, vt_sol = self.vt_position(**(vt_kw or {}))
+        if vt_res is not None:
+            vt_trk, vt_sol = vt_res
             multicorr = (vt_kw or {}).get("multicorr")
             if multicorr is None:
                 multicorr = cfg.cmn.multicorr_vt
@@ -727,7 +783,7 @@ class Receiver:
         """Stage 7: the Task 1-5 result plots (Plot_task_1..5.m) and the
         channel dashboards as PNG files, and the decoded-ephemeris CSV
         (Task_3_table.m).  Needs matplotlib: without it the plots raise
-        its ImportError."""
+        its ImportError.  With a mesh rank 0 writes the files."""
         from gps_sdr_tpu_torch.analysis import plots
         from gps_sdr_tpu_torch.utils.metrics import export_ephemeris_table
 
@@ -739,8 +795,10 @@ class Receiver:
         vt_sol = vt_trk = None
         if vt:
             vt_trk, vt_sol = self.vt_position(**(vt_kw or {}))
-        plots.save_all(acq=acq, records=rec, prns=pos_svs, eph=eph,
-                       nav=nav, vt_sol=vt_sol, truth_ecef=truth,
-                       out_dir=out_dir, vt_trk=vt_trk)
-        export_ephemeris_table(
-            eph, os.path.join(out_dir, "task3_ephemeris.csv"), pos_svs)
+        if self._writer():
+            plots.save_all(acq=acq, records=rec, prns=pos_svs, eph=eph,
+                           nav=nav, vt_sol=vt_sol, truth_ecef=truth,
+                           out_dir=out_dir, vt_trk=vt_trk)
+            export_ephemeris_table(
+                eph, os.path.join(out_dir, "task3_ephemeris.csv"), pos_svs)
+        self._written()

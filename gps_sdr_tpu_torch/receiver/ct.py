@@ -79,7 +79,8 @@ def run_ct_positioning(records: TrackRecords, cfg: ReceiverConfig,
                        max_epochs: int | None = None,
                        meas_start_sample: float | None = None,
                        local_time_advance_s: float | None = None,
-                       doppler_at_fire_row: bool = False) -> NavSolutions:
+                       doppler_at_fire_row: bool = False,
+                       mesh=None) -> NavSolutions:
     """Form WLS solutions from a tracked segment whose state started at the
     eph-decoding run's origin (skip·S + S − codedelay + 1).
 
@@ -97,6 +98,12 @@ def run_ct_positioning(records: TrackRecords, cfg: ReceiverConfig,
     frequency of the first row at which every channel has passed the
     measurement sample, one common row as the reference's live loop
     variable is (…:513-514), instead of each channel's own row.
+
+    `mesh` (a `parallel.mesh.Mesh`) solves every epoch with the channel
+    axis sharded over its ranks: the normal equations of the iterated LS,
+    the DOP and the velocity LS reduced over the ranks, with the validity
+    weights (`parallel/epoch.make_epoch_solver`); the fixes agree with the
+    host solver's to float64 round-off.
     """
     sig, cmn, solu = cfg.signal, cfg.cmn, cfg.solu
     fs = sig.fs
@@ -146,6 +153,11 @@ def run_ct_positioning(records: TrackRecords, cfg: ReceiverConfig,
     mask_thresh = float(getattr(solu, "mask_snr_db", 0.0))
     valid_rows = (gate_mask(gate_rows, mask_thresh) if mask_thresh > 0
                   else np.ones_like(gate_rows, bool))
+
+    epoch_solver = None
+    if mesh is not None and mesh.size > 1:
+        from gps_sdr_tpu_torch.parallel.epoch import make_epoch_solver
+        epoch_solver = make_epoch_solver(mesh, L1_WAVELENGTH)
 
     init_pos = np.asarray(init_pos_ecef, np.float64)
     est = torch.as_tensor(np.concatenate([init_pos, [0.0]]),
@@ -197,10 +209,15 @@ def run_ct_positioning(records: TrackRecords, cfg: ReceiverConfig,
                     if doppler_at_fire_row else idx)
         doppler = torch.as_tensor(records.carr_freq[dop_rows, chan]
                                   - sig.f_if)
-        est, dop = iterated_ls_position(prvec[mt], sv_pos_rot[mt], est)
-        vel, clk_drift, _ = doppler_velocity_ls(
-            est[:3], sv_pos_rot[mt], sv["vel"][mt], doppler[mt],
-            L1_WAVELENGTH, sv["clk_rate_ms"][mt])
+        if epoch_solver is not None:
+            est, dop, vel, clk_drift = epoch_solver(
+                prvec, sv_pos_rot, sv["vel"], doppler, sv["clk_rate_ms"], m,
+                est)
+        else:
+            est, dop = iterated_ls_position(prvec[mt], sv_pos_rot[mt], est)
+            vel, clk_drift, _ = doppler_velocity_ls(
+                est[:3], sv_pos_rot[mt], sv["vel"][mt], doppler[mt],
+                L1_WAVELENGTH, sv["clk_rate_ms"][mt])
 
         enu = xyz2enu(est[:3], init_pos)
         vel_enu = xyz2enu(est[:3] + vel, est[:3])

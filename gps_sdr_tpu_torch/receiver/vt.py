@@ -37,6 +37,18 @@ on the device that the host reads once per chunk, with the records.  The JAX
 package lets a NaN block length through its clip into the int cast
 (`vt.py:325`); here that raises.
 
+With a mesh (`parallel/mesh.py`) the channel axis is sharded over a world
+of ranks (`parallel/vt.py`, `run_vector_tracking(mesh=…)`): each rank runs
+the per-channel work of its channels, and the EKF runs replicated on every
+rank from the world's measurement rows: the line-of-sight rows gathered
+once per Kepler group, z_pr, z_prr and the validity gate packed into one
+tensor and gathered every ms, the transmit times and block lengths that
+the record's local time needs gathered once per chunk with the records.  A
+gloo collective cannot be captured in a CUDA graph, so on the card the
+sharded step is replayed as two graphs, the step's two halves (`measure`,
+`update`), with the gather between them on the host; the refresh, which
+gathers, runs eagerly.  The unsharded step is one graph, as before.
+
 Sign note: prr_meas = +(carrFreq − IF)·c/fc, matching prr_pred = a·(Vest −
 Vs) and the H rows [0 −a 0 1] for any IF, as in the JAX package.
 """
@@ -101,6 +113,16 @@ class VTState(NamedTuple):
     cn0: torch.Tensor              # (N,) latest C/N0 estimate [dB-Hz]
     valid: torch.Tensor            # (N,) bool gate
 
+
+# record keys of the EKF layer: the same on every rank when the channel
+# axis is sharded; every other key is per channel, channel on axis 1
+_VT_REC_GLOBAL = frozenset((
+    "total_state", "state_cov_diag", "kalman_gain", "innovation",
+    "r_diag", "loop_bw_hz", "predicted_z", "local_time"))
+# VTState fields of the EKF layer: replicated across ranks, never padded or
+# sliced on the channel axis
+_VT_STATE_REPLICATED = frozenset((
+    "total_state", "state_cov", "r_diag", "innov_sq_sum", "step_count"))
 
 _VT_STATE_DTYPES = {"ptr": torch.int64, "phase_fp": torch.int32,
                     "step_count": torch.int32, "valid": torch.bool}
@@ -173,6 +195,8 @@ class VTParams:
 _GROUP_FIELDS = ("tt0", "clk_rate", "pred_pr_head", "a32", "est_pos_h",
                  "clk_bias_h", "H", "vel0_32", "acc0_32", "clk_rate_32",
                  "pos0")
+# with a mesh, also the world's a32 (n_real, 3)
+_WORLD_GROUP_FIELDS = _GROUP_FIELDS + ("a32_world",)
 # what a refresh may renew in the carry
 _ATMOSPHERE_FIELDS = ("iono_m", "tropo_m", "el_rad", "az_rad")
 
@@ -185,18 +209,27 @@ class _VTChunk:
     `refresh_values(atmosphere)` gives the new group cache (and, with
     `atmosphere`, the renewed corrections); `step_values(first, window,
     r_update)` gives the carry's new values and the record row of one ms.
-    The three flags are what the host knows from the step count.  Neither
-    function writes into a tensor it was given and neither reads a tensor
-    back, so on a CUDA device both can be captured into a CUDA graph once
-    the caller commits their values into fixed tensors (`vt_scan`).
+    The three flags are what the host knows from the step count.  With
+    `mesh`, the carry's per-channel fields are this rank's slice and the
+    EKF's are the world's, of `n_real` channels: both functions gather what
+    the EKF needs from the other ranks.  Neither function writes into a
+    tensor it was given and neither reads a tensor back (but for those
+    gathers), so on a CUDA device both can be captured into a CUDA graph
+    once the caller commits their values into fixed tensors (`vt_scan`).
     """
 
     def __init__(self, raw, chunk_start, state, chips, eph, iono_alpha,
-                 iono_beta, params, fs, blk, f_if, fc, code_freq_basis, doy):
+                 iono_beta, params, fs, blk, f_if, fc, code_freq_basis, doy,
+                 mesh=None, n_real=None):
         dev = raw.device
         f32, f64_, i64 = torch.float32, torch.float64, torch.int64
         self.params, self.eph, self.dev = params, eph, dev
         self.n = state.ptr.shape[0]
+        # the EKF's channels: the world's real ones with a mesh
+        self.mesh = mesh
+        self.n_real = self.n if mesh is None else n_real
+        if mesh is not None:
+            self.mine = mesh.rows(self.n * mesh.size)   # this rank's slice
         self.chunk_start, self.blk = chunk_start, blk
         self.f_if, self.fc, self.code_freq_basis = f_if, fc, code_freq_basis
         tau1, tau2 = loop_coefficients(params.pll_bw_hz, params.pll_damping,
@@ -245,7 +278,7 @@ class _VTChunk:
         motion along velocity + central-gravity acceleration and linearise
         the predicted pseudorange around this head (second-order range
         error over a 50 ms group ≈ 4e-4 m)."""
-        st, n, dev = self.st, self.n, self.dev
+        st, dev = self.st, self.dev
         f32 = torch.float32
         est_pos_h = st["total_state"][:3]
         clk_bias_h = st["total_state"][6]
@@ -276,12 +309,18 @@ class _VTChunk:
         r1 = torch.linalg.norm(diff, dim=-1)
         a32 = (diff / r1[:, None]).to(f32)               # unit LOS (N, 3)
         # measurement matrix (…:374-376): the LOS turns by < 1e-5 rad
-        # across a group, so H is constant per group
-        H = torch.zeros((2 * n, 8), dtype=f32, device=dev)
-        H[:n, 0:3] = -a32
-        H[:n, 6] = 1.0
-        H[n:, 3:6] = -a32
-        H[n:, 7] = 1.0
+        # across a group, so H is constant per group.  H is the world's:
+        # with a mesh the LOS rows are gathered here, once per group
+        a32_g = (a32 if self.mesh is None
+                 else self.mesh.all_gather_rows(a32, self.n_real))
+        nr = self.n_real
+        H = torch.zeros((2 * nr, 8), dtype=f32, device=dev)
+        H[:nr, 0:3] = -a32_g
+        H[:nr, 6] = 1.0
+        H[nr:, 3:6] = -a32_g
+        H[nr:, 7] = 1.0
+        if self.mesh is not None:
+            new["a32_world"] = a32_g
         new.update(
             tt0=st["transmit_time"], clk_rate=sv["clk_rate_ms"],
             pred_pr_head=r1 + corr_m, a32=a32, est_pos_h=est_pos_h,
@@ -295,8 +334,19 @@ class _VTChunk:
                                Dict[str, torch.Tensor]]:
         """One ms: (the carry's new values by field, the record row).
         `first`: the step count is 0; `window`: this step closes a C/N0
-        window; `r_update`: it closes an adaptive-R interval."""
-        st, g, params, n = self.st, self.g, self.params, self.n
+        window; `r_update`: it closes an adaptive-R interval.  With a mesh
+        the measurement rows are gathered between the two halves."""
+        m = self.measure(first, window)
+        rows = (None if self.mesh is None
+                else self.mesh.all_gather_rows(m["rows"], self.n_real))
+        return self.update(m, rows, r_update)
+
+    def measure(self, first: bool, window: bool) -> Dict[str, torch.Tensor]:
+        """The first half of a ms, up to this rank's measurement rows: the
+        block, the prediction, the correlation, the PLL, the gate and the
+        two measurements; what `update` needs, by name (with a mesh, also
+        `rows`: z_pr, z_prr and the gate packed as (N, 3) float32)."""
+        st, g, params, nr = self.st, self.g, self.params, self.n_real
         f32, f64_, i64 = torch.float32, torch.float64, torch.int64
         fs_t, dt, n_chips = self.fs_t, self.dt, self.n_chips
         ie, ip, il = params.i_early, params.i_prompt, params.i_late
@@ -320,8 +370,17 @@ class _VTChunk:
         sv_delta32 = g["vel0_32"] * dte32 \
             + (0.5 * dte32 * dte32) * g["acc0_32"]
         sv_vel32 = g["vel0_32"] + g["acc0_32"] * dte32    # (N, 3) f32
-        d_range32 = ((g["a32"] * sv_delta32).sum(dim=-1)
-                     - g["a32"] @ (est_pos - g["est_pos_h"]).to(f32))
+        dpos32 = (est_pos - g["est_pos_h"]).to(f32)
+        if self.mesh is None:
+            los_dpos = g["a32"] @ dpos32
+        else:
+            # the product over the world's rows, then this rank's (padding
+            # rows repeat channel 0): a product over fewer rows can round
+            # differently
+            los_w = g["a32_world"] @ dpos32
+            los_dpos = torch.cat([los_w, los_w[:1].expand(
+                self.n * self.mesh.size - nr)])[self.mine]
+        d_range32 = (g["a32"] * sv_delta32).sum(dim=-1) - los_dpos
         pred_pr = (g["pred_pr_head"] + (clk_bias - g["clk_bias_h"])
                    + g["clk_rate"] * dt_e + d_range32.to(f64_))
         delta_pr = (pred_pr - st["predicted_pr_last"]) / dt
@@ -375,12 +434,36 @@ class _VTChunk:
         prr_meas = ((carr_freq - self.f_if) * (C_LIGHT / self.fc)).to(f32)
         prr_pred = ((est_vel32[None, :] - sv_vel32) * g["a32"]).sum(dim=-1)
         z_prr = prr_pred - prr_meas - clk_drift.to(f32) + g["clk_rate_32"]
-        z = torch.cat([z_pr, z_prr])                      # (2N,) f32
+        out = dict(total0=total0, num=num, tt=tt, sv_delta32=sv_delta32,
+                   sv_vel32=sv_vel32, pred_pr=pred_pr, delta_pr=delta_pr,
+                   code_freq=code_freq, corr=corr, rem_new=rem_new,
+                   phase_new=phase_new, carr_err=carr_err, pll=pll,
+                   carr_freq=carr_freq, zk=zk, snr_hist=snr_hist, cn0=cn0,
+                   valid=valid, code_err=code_err, z_pr=z_pr, z_prr=z_prr)
+        if self.mesh is not None:
+            out["rows"] = torch.stack([z_pr, z_prr, valid.to(f32)], dim=1)
+        return out
+
+    def update(self, m: Dict[str, torch.Tensor],
+               rows: Optional[torch.Tensor], r_update: bool
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """The second half of a ms from `measure`'s values and, with a
+        mesh, the world's measurement rows `rows` (n_real, 3): the EKF
+        update, the adaptive R, then (the carry's new values, the record
+        row)."""
+        st, g, params, nr = self.st, self.g, self.params, self.n_real
+        f64_ = torch.float64
+        fs_t = self.fs_t
+        total0, num, tt, valid = m["total0"], m["num"], m["tt"], m["valid"]
+        if rows is None:
+            z, valid_g = torch.cat([m["z_pr"], m["z_prr"]]), valid  # (2N,)
+        else:
+            z, valid_g = torch.cat([rows[:, 0], rows[:, 1]]), rows[:, 2] > 0
 
         # --- EKF predict + update (…:388-404) in float32; gated-out
         # channels have both rows deweighted by r_masked ---
         H, F32 = g["H"], self.F32
-        valid2 = torch.cat([valid, valid])
+        valid2 = torch.cat([valid_g, valid_g])
         r_used = torch.where(valid2, st["r_diag"], self.r_masked)
         P = F32 @ st["state_cov"] @ F32.T + self.Qm
         PHt = P @ H.T
@@ -405,40 +488,48 @@ class _VTChunk:
         sq = st["innov_sq_sum"] + torch.where(valid2, z * z, self.zero32)
         r_diag = st["r_diag"]
         if r_update:
-            m = sq / float(params.r_update_ms)
+            mean_sq = sq / float(params.r_update_ms)
             r_diag = torch.cat([
-                torch.clamp(m[:n] * 10.0, params.r_min, params.r_pr_max),
-                torch.clamp(m[n:], params.r_min, params.r_prr_max)])
+                torch.clamp(mean_sq[:nr] * 10.0, params.r_min,
+                            params.r_pr_max),
+                torch.clamp(mean_sq[nr:], params.r_min, params.r_prr_max)])
             sq = torch.zeros_like(sq)
 
         abs_sample = st["ptr"] + num
         new = dict(
-            ptr=abs_sample, rem_chip=rem_new, code_freq=code_freq,
-            carr_freq=carr_freq, phase_fp=phase_new, pll_nco=pll,
-            pll_last=carr_err, transmit_time=tt, predicted_pr_last=pred_pr,
-            total_state=total_next, state_cov=P, r_diag=r_diag,
-            innov_sq_sum=sq, zk=zk, snr_hist=snr_hist, cn0=cn0, valid=valid)
+            ptr=abs_sample, rem_chip=m["rem_new"], code_freq=m["code_freq"],
+            carr_freq=m["carr_freq"], phase_fp=m["phase_new"],
+            pll_nco=m["pll"], pll_last=m["carr_err"], transmit_time=tt,
+            predicted_pr_last=m["pred_pr"], total_state=total_next,
+            state_cov=P, r_diag=r_diag, innov_sq_sum=sq, zk=m["zk"],
+            snr_hist=m["snr_hist"], cn0=m["cn0"], valid=valid)
 
-        # common-epoch time of the record: the earliest channel's block
-        # start, tt − (num − min(num) + 1)/fs
-        local_time = (tt - (num - (num.min() - 1)).to(f64_) / fs_t).min()
-        return new, dict(
-            corr=corr, carr_err=carr_err, code_err=code_err,
-            code_freq=code_freq, carr_freq=carr_freq, delta_pr=delta_pr,
-            num_sample=num, absolute_sample=abs_sample, rem_chip=rem_new,
+        rec = dict(
+            corr=m["corr"], carr_err=m["carr_err"], code_err=m["code_err"],
+            code_freq=m["code_freq"], carr_freq=m["carr_freq"],
+            delta_pr=m["delta_pr"], num_sample=num, absolute_sample=abs_sample,
+            rem_chip=m["rem_new"],
             rem_phase=torch.remainder(
-                phase_new.to(f64_) * (2.0 * math.pi / Q32), 2.0 * math.pi),
-            carr_nco=pll,
+                m["phase_new"].to(f64_) * (2.0 * math.pi / Q32),
+                2.0 * math.pi),
+            carr_nco=m["pll"],
             # extrapolated SV position (navSolutionsVT.svxyz_pos, …:431)
             # and the post-fit predicted measurement H·δx (…:433-435)
-            sv_pos=g["pos0"] + sv_delta32.to(f64_), predicted_z=H @ err,
+            sv_pos=g["pos0"] + m["sv_delta32"].to(f64_), predicted_z=H @ err,
             total_state=total, state_cov_diag=torch.diagonal(P),
             kalman_gain=K, innovation=z, r_diag=r_diag,
             # per-measurement equivalent loop bandwidth [Hz]:
             # diag(H·K)/4/293/0.001 (trackingVT_POS_updated_by_20210621.m:384)
             loop_bw_hz=(H * K.T).sum(dim=1) / self.bw_div,
-            el=st["el_rad"], az=st["az_rad"], sv_vel=sv_vel32,
-            local_time=local_time, transmit_time=tt, cn0=cn0, valid=valid)
+            el=st["el_rad"], az=st["az_rad"], sv_vel=m["sv_vel32"],
+            transmit_time=tt, cn0=m["cn0"], valid=valid)
+        if self.mesh is None:
+            # common-epoch time of the record: the earliest channel's block
+            # start, tt − (num − min(num) + 1)/fs (with a mesh: `vt_scan`,
+            # once a chunk, `_local_time`)
+            rec["local_time"] = (tt - (num - (num.min() - 1)).to(f64_)
+                                 / fs_t).min()
+        return new, rec
 
     def atmosphere_due(self, count: int, group_len: int) -> bool:
         """The atmosphere refreshes at the group head whose steps contain a
@@ -453,6 +544,14 @@ class _VTChunk:
         st["step_count"] = torch.tensor(count, dtype=torch.int32,
                                         device=self.dev)
         return VTState(**st)
+
+
+def _local_time(tt: torch.Tensor, num: torch.Tensor, fs_t: torch.Tensor
+                ) -> torch.Tensor:
+    """`local_time` of a (T, N) record, row by row: the arithmetic of
+    `_VTChunk.step_values` over the channels of each row."""
+    first = num.min(dim=-1, keepdim=True).values - 1
+    return (tt - (num - first).to(torch.float64) / fs_t).min(dim=-1).values
 
 
 def _commit(dst: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
@@ -488,7 +587,8 @@ def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
             chips: torch.Tensor, eph: Ephemeris, iono_alpha, iono_beta,
             params: VTParams, n_steps: int, fs: float, blk: int, f_if: float,
             fc: float, code_freq_basis: float, doy: int,
-            graph: Optional[bool] = None
+            graph: Optional[bool] = None, mesh=None,
+            n_real: Optional[int] = None
             ) -> Tuple[VTState, Dict[str, torch.Tensor]]:
     """Run `n_steps` ms of vector tracking inside one raw chunk.
 
@@ -513,6 +613,19 @@ def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
     long as the call.  Both ways give the same bits; a capture that fails
     raises.  A replayed step adds the bank launches it holds to
     `correlator_bank.launches`.
+
+    `mesh` (a `parallel.mesh.Mesh`; see `parallel/vt.sharded_vt_scan`): the
+    per-channel fields of `state`, `chips` and `eph` are this rank's slice
+    of the world's channels, padded to a multiple of its size; the first
+    `n_real` are real.  The EKF runs on every rank from the gathered rows,
+    and the records returned are the world's: the per-channel ones gathered
+    in rank order and cut to `n_real`, with `local_time` from the gathered
+    transmit times and block lengths and `fault` the world's flag.  The
+    state stays this rank's.  A collective cannot be captured: with `graph`
+    the step is replayed as two graphs, its first half (`measure`) and its
+    second (`update`), with the gather of the measurement rows between them
+    on the host; the refresh, which gathers the line-of-sight rows, runs
+    eagerly.
     """
     dev = raw.device
     if graph is None:
@@ -520,17 +633,20 @@ def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
     if graph and dev.type != "cuda":
         raise ValueError(f"vt_scan: CUDA graphs need a CUDA device, not {dev}")
     run = _VTChunk(raw, chunk_start, state, chips, eph, iono_alpha, iono_beta,
-                   params, fs, blk, f_if, fc, code_freq_basis, doy)
+                   params, fs, blk, f_if, fc, code_freq_basis, doy, mesh,
+                   n_real)
     recs: Dict[str, torch.Tensor] = {}
-    graphs: Dict[tuple, Tuple[torch.cuda.CUDAGraph, int]] = {}
+    graphs: Dict[tuple, tuple] = {}
+    world_rows: Dict[str, torch.Tensor] = {}   # the gather's fixed tensor
 
     def refresh(atmosphere: bool) -> None:
         new = run.refresh_values(atmosphere)
-        _commit(run.g, {k: new[k] for k in _GROUP_FIELDS})
+        _commit(run.g, {k: new[k] for k in (
+            _GROUP_FIELDS if mesh is None else _WORLD_GROUP_FIELDS)})
         _commit(run.st, {k: new[k] for k in _ATMOSPHERE_FIELDS})
 
-    def step(first: bool, window: bool, r_update: bool) -> None:
-        new, rec = run.step_values(first, window, r_update)
+    def record(new: Dict[str, torch.Tensor], rec: Dict[str, torch.Tensor]
+               ) -> None:
         if not recs:
             recs.update({k: torch.empty((n_steps, *v.shape), dtype=v.dtype,
                                         device=dev) for k, v in rec.items()})
@@ -539,30 +655,70 @@ def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
         _commit(run.st, new)
         run.row += 1
 
+    def step(first: bool, window: bool, r_update: bool) -> None:
+        record(*run.step_values(first, window, r_update))
+
+    def replay(key: tuple, fn):
+        """`fn()` captured under `key` at first need, then replayed; what
+        the captured `fn` returned (tensors every replay rewrites)."""
+        if key not in graphs:
+            out = []
+            graphs[key] = (*_capture(lambda: out.append(fn()), run.bank), out)
+        held, launches, out = graphs[key]
+        held.replay()
+        correlator_bank.launches += launches
+        return out[0]
+
     def do(fn, *flags, eager: bool) -> None:
         if eager or not graph:
             fn(*flags)
+        else:
+            replay((fn, *flags), lambda: fn(*flags))
+
+    def do_split(first: bool, window: bool, r_update: bool, eager: bool
+                 ) -> None:
+        """The sharded step: `measure` and `update` replayed with the
+        measurement rows gathered between them."""
+        if eager or not graph:
+            step(first, window, r_update)
             return
-        key = (fn, *flags)
-        if key not in graphs:
-            graphs[key] = _capture(lambda: fn(*flags), run.bank)
-        held, launches = graphs[key]
-        held.replay()
-        correlator_bank.launches += launches
+        flags = (first, window, r_update)
+        m = replay(("measure", *flags), lambda: run.measure(first, window))
+        rows = mesh.all_gather_rows(m["rows"], n_real)
+        if "rows" in world_rows:
+            world_rows["rows"].copy_(rows)
+        else:
+            world_rows["rows"] = rows
+        replay(("update", *flags), lambda: record(
+            *run.update(m, world_rows["rows"], r_update)))
 
     count = run.count0
     group = max(1, int(params.kepler_update_ms))
     done = 0
     while done < n_steps:
         n_group = min(group, n_steps - done)
-        do(refresh, run.atmosphere_due(count, n_group), eager=done == 0)
+        do(refresh, run.atmosphere_due(count, n_group),
+           eager=done == 0 or mesh is not None)
         for i in range(n_group):
-            do(step, count == 0, (count + 1) % params.cn0_window == 0,
-               (count + 1) % params.r_update_ms == 0, eager=done + i == 0)
+            flags = (count == 0, (count + 1) % params.cn0_window == 0,
+                     (count + 1) % params.r_update_ms == 0)
+            if mesh is None:
+                do(step, *flags, eager=done + i == 0)
+            else:
+                do_split(*flags, eager=done + i == 0)
             count += 1
         done += n_group
 
-    recs["fault"] = run.fault
+    fault = run.fault
+    if mesh is not None:
+        recs = {k: (v if k in _VT_REC_GLOBAL
+                    else mesh.all_gather_rows(v, n_real, dim=1))
+                for k, v in recs.items()}
+        if recs:
+            recs["local_time"] = _local_time(recs["transmit_time"],
+                                             recs["num_sample"], run.fs_t)
+        fault = mesh.gather_fault(fault, run.n)
+    recs["fault"] = fault
     return run.end_state(count), recs
 
 
@@ -664,12 +820,21 @@ def init_vt_state(cfg: ReceiverConfig, ct_records: TrackRecords,
 def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
                         prns: Sequence[int], eph_struct: Ephemeris,
                         state: VTState, params: VTParams, n_ms: int,
-                        init_pos_ecef: np.ndarray, chunk_ms: int = 1000
+                        init_pos_ecef: np.ndarray, chunk_ms: int = 1000,
+                        mesh=None
                         ) -> Tuple[VTTrackRecords, VTSolutions, VTState]:
     """Host loop of the VT scan: chunk the capture, collect the records.
 
     Runs on the device of `state`; `eph_struct` must be there too.  The
     next chunk's host read overlaps the device's work on the current one.
+
+    `mesh` (a `parallel.mesh.Mesh`) shards the channel axis over its ranks
+    (`parallel/vt.py`; the JAX package's gps_sdr_tpu/receiver/vt.py:740-805):
+    padded with duplicates of channel 0 to a multiple of its size, each
+    rank running its slice from its own reads, the EKF replicated from the
+    gathered measurement rows.  Every rank returns the records, solutions
+    and end state of all channels; the records bit for bit the unsharded
+    run's.
     """
     if len(prns) == 0:
         raise ValueError("no channels to track (empty PRN list)")
@@ -678,6 +843,16 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
     fs = float(cfg.signal.fs)
     blk = -(-(S * params.pdi_ms + 256) // 128) * 128
     chips = chip_tables(prns, device)
+    n_real = len(prns)
+    scan = vt_scan
+    use_mesh = mesh is not None and mesh.size > 1
+    if use_mesh:
+        from gps_sdr_tpu_torch.parallel import vt as pvt
+        state, chips, eph_struct, _ = pvt.pad_vt_state(state, chips,
+                                                       eph_struct, mesh.size)
+        state, chips, eph_struct = pvt.shard_vt_state(mesh, state, chips,
+                                                      eph_struct)
+        scan = pvt.sharded_vt_scan(mesh, n_real)
     prefetcher = ChunkPrefetcher(source.read_iq_values)
     stager = DeviceStager(device)
     recs: Dict[str, list] = {}
@@ -689,7 +864,7 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
             ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
             length = (ptr_max - ptr_min) + nb * params.pdi_ms * S + blk + 64
             raw = stager.stage(prefetcher.fetch(ptr_min, length))
-            state, rec = vt_scan(
+            state, rec = scan(
                 raw, ptr_min, state, chips, eph_struct, cfg.cmn.iono_alpha,
                 cfg.cmn.iono_beta, params, nb, fs, blk,
                 float(cfg.signal.f_if), float(cfg.signal.fc),
@@ -706,6 +881,8 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
             done += nb
     finally:
         prefetcher.close()
+    if use_mesh:
+        state = pvt.gather_vt_state(mesh, state, n_real)
     cat = {k: np.concatenate(v) for k, v in recs.items()}
 
     pos = cat["total_state"][:, :3]

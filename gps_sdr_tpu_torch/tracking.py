@@ -19,11 +19,22 @@ offset quirks) follows the reference:
 - trackingCT.m:137-150   DLL/PLL recurrences, codeFreq = basis − nco
 - trackingCT_POS_updated.m:210-270  E/P/L from the 25-tap grid with the
   +0.05-chip prompt offset, codeFreq = basis + nco, ceil() block length
+
+With a mesh (`parallel/mesh.py`) `run_tracking` shards the channel axis
+over a world of ranks on both routes, `track_chunk` and `track_scan`
+(`parallel/tracking.py`).  The JAX package leaves its whole-chunk Pallas
+kernel unsharded (gps_sdr_tpu/tracking.py:594-600) and shards every other
+pdi-1 engine; here `track_chunk` is the only pdi-1 engine, and a channel's
+result does not depend on how many channels share its launch, so it is
+sharded like the rest.  A resident capture (time-segmented tracking) runs
+unsharded with a warning, as the JAX package does with per-channel windows
+(gps_sdr_tpu/tracking.py:587-592).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -296,7 +307,7 @@ def track_scan(raw: torch.Tensor, chunk_start: int, state: TrackState,
 def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
                  state: TrackState, params: TrackParams, n_ms: int,
                  chunk_ms: int = 1000,
-                 resident: Optional[torch.Tensor] = None
+                 resident: Optional[torch.Tensor] = None, mesh=None
                  ) -> Tuple[TrackRecords, TrackState]:
     """Track `n_ms` of signal ms from `state` (on its device), chunk by
     chunk of `chunk_ms`: one `track_chunk` call per chunk for coherent
@@ -313,6 +324,12 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
     chunk_start 0, with no read, staging or gather: the route for channels
     far apart in the capture (time-segmented tracking), where the span from
     the first pointer to the last is nearly the whole capture.
+
+    `mesh` (a `parallel.mesh.Mesh`) shards the channel axis over its ranks:
+    the channels padded to a multiple of its size with duplicates of
+    channel 0, each rank tracking its slice from its own reads, the records
+    and the end state gathered in rank order, so every rank returns those
+    of all channels, bit for bit the unsharded run's.
     """
     if len(prns) == 0:
         raise ValueError("no channels to track (empty PRN list)")
@@ -333,6 +350,18 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
     n_blocks_total = n_ms // params.pdi_ms
     blocks_per_chunk = max(1, chunk_ms // params.pdi_ms)
     tracker = track_scan if params.pdi_ms > 2 else track_chunk
+    n_real = len(prns)
+    use_mesh = mesh is not None and mesh.size > 1
+    if use_mesh and resident is not None:
+        warnings.warn("run_tracking: mesh is ignored with a resident capture "
+                      "(time-segmented tracking runs on this rank's device "
+                      "alone)", stacklevel=2)
+        use_mesh = False
+    if use_mesh:
+        from gps_sdr_tpu_torch.parallel import tracking as ptrack
+        state, chips, _ = ptrack.pad_channels(state, chips, mesh.size)
+        state, chips = ptrack.shard_channels(mesh, state, chips)
+        tracker = ptrack.sharded_tracker(mesh, tracker, n_real)
     staged = resident is None
     if staged:
         prefetcher = ChunkPrefetcher(source.read_iq_values)
@@ -367,4 +396,6 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
     finally:
         if staged:
             prefetcher.close()
+    if use_mesh:
+        state = ptrack.gather_state(mesh, state, n_real)
     return TrackRecords.concatenate(parts), state

@@ -46,11 +46,16 @@ def test_port_imports_without_jax():
     "gps_sdr_tpu_torch.analysis", "gps_sdr_tpu_torch.analysis.acf",
     "gps_sdr_tpu_torch.analysis.multipath",
     "gps_sdr_tpu_torch.analysis.plots", "gps_sdr_tpu_torch.cli",
-    "gps_sdr_tpu_torch.parallel", "gps_sdr_tpu_torch.parallel.time_segments"])
+    "gps_sdr_tpu_torch.parallel", "gps_sdr_tpu_torch.parallel.time_segments",
+    "gps_sdr_tpu_torch.parallel.mesh", "gps_sdr_tpu_torch.parallel.acquisition",
+    "gps_sdr_tpu_torch.parallel.tracking", "gps_sdr_tpu_torch.parallel.epoch",
+    "gps_sdr_tpu_torch.parallel.vt",
+    "gps_sdr_tpu_torch.parallel.distributed"])
 def test_walk_reaches_module(module):
     """The walk above covers the modules of the later slices (vector
     tracking; the legacy filter, `.mat` in and out, analysis; the command
-    line and time-segmented tracking)."""
+    line and time-segmented tracking; the mesh of ranks and its sharded
+    stages)."""
     import pkgutil
 
     import gps_sdr_tpu_torch
