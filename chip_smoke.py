@@ -92,6 +92,24 @@ Phases, each printing one line of evidence:
    route).  Per rank: its kernel launches, stage times, VT ms a step, read
    fraction.  One card shared by two ranks shows that the sharded path
    works on the card, not how it scales.
+8. The command line under a world: `python -m torch.distributed.run
+   --standalone --nproc-per-node 2 -m gps_sdr_tpu_torch.cli` over phase 6's
+   file with phase 6's arguments and `--dist-backend gloo` (both ranks on
+   the one card, kernels built by phase 1), cold: new `--artifacts` and
+   `--out`.  Gates: exit code 0; the table, the usable SVs and the WLS and
+   VT lines printed once, the same PRNs and usable SVs as phase 6; the
+   `.mat` set read back and held against phase 6's files
+   (parallel/distributed.compare_mat_exports: records exact, WLS within
+   1e-6 m, VT within tests/test_mesh_pipeline.py's split); each rank's
+   printed launch line with B1, B3 and B2 above 0.
+9. The results record: `python -m gps_sdr_tpu_torch.results <dir>
+   --no-plots --scaling-ranks 1,2` (the counterpart of make_results.py on
+   the scenario of gps_sdr_tpu_torch/io/scenario.py, 32 s at 5 MHz) in a
+   process of its own.  Gates: the 5 PRNs among those acquired and exactly
+   those usable, the acquisition equal to the plain version's on the CPU
+   over the same capture, WLS and VT medians < 120 m, RESULTS.md written
+   with the card and its power limit at its head and the scaling table
+   filled for 1 and 2 ranks, B1 and B2 launched.
 
 Receiver.report (the plots) is not run here: it needs matplotlib, which the
 GPU machine does not have (hence the command's --no-plots); the CPU tests
@@ -124,17 +142,18 @@ import numpy as np
 import torch
 
 from gps_sdr_tpu_torch import tracking
+from gps_sdr_tpu_torch.acquisition import run_acquisition
 from gps_sdr_tpu_torch.config import (CommonConfig, FileConfig,
                                       ReceiverConfig, SignalConfig,
                                       SolutionConfig, TrackConfig,
                                       opensky_config)
 from gps_sdr_tpu_torch.geo.coords import llh2xyz
-from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris, sv_pos_vel_clock
 from gps_sdr_tpu_torch.io.ifdata import DeviceStager, IFSampleSource
 from gps_sdr_tpu_torch.io import matref
 from gps_sdr_tpu_torch.io.synthetic import (GeometrySignal, GeometrySV,
                                             SyntheticSV, generate_if_samples,
                                             quantize_iq)
+from gps_sdr_tpu_torch.io import scenario
 from gps_sdr_tpu_torch.ops import _build
 from gps_sdr_tpu_torch.ops import corr_bank as cb
 from gps_sdr_tpu_torch.ops import track_chunk as tc
@@ -188,13 +207,6 @@ TOW0 = 388799.0
 CLI_TOW0 = TOW0 - 7.0
 CLK_BIAS_S = 5e-4
 CLK_DRIFT_SPS = 2e-9
-BASE_EPH = dict(
-    sqrta=5153.6413, ecc=0.00122963, m0=2.14587329, omega0=1.25789432,
-    i0=0.96679784, w=-0.89245321, deltan=4.3267e-09, omegadot=-7.2345e-09,
-    idot=-4.2e-10, cuc=1.5272e-07, cus=2.3842e-07, crc=287.46875,
-    crs=-2.59375, cic=-7.45058e-09, cis=1.3039e-08, toe=388800.0,
-    toc=388800.0, af0=1.8364e-04, af1=2.0464e-12, af2=0.0,
-    tgd=-7.4506e-09, iodc=23, iode=23, health=0, ura=0)
 WLS_GATE_M = 120.0                      # bench.py:470
 
 # kernel-against-plain bounds (tests/test_pallas_fused.py)
@@ -219,39 +231,6 @@ def cfg_e2e() -> ReceiverConfig:
         signal=SignalConfig(f_if=F_IF, fs=FS),
         solu=SolutionConfig(truth_llh=TRUTH_LLH),
         cmn=CommonConfig(multicorr_ct=False, multicorr_vt=False))
-
-
-def visible_constellation(n_sv: int, min_el_deg: float = 20.0):
-    """(omega0, m0) variations of BASE_EPH visible from the truth position
-    at TOW0 with spread azimuths — tests/scenario.py's picker (numpy
-    seed 7) on the port's geodesy."""
-    usr = llh2xyz(np.asarray(TRUTH_LLH)).numpy()
-    picked, az_used = [], []
-    rng = np.random.default_rng(7)
-    candidates = [(o, m) for o in np.linspace(0, 2 * np.pi, 24, endpoint=False)
-                  for m in np.linspace(0, 2 * np.pi, 12, endpoint=False)]
-    rng.shuffle(candidates)
-    for om, m0 in candidates:
-        eph = dict(BASE_EPH, omega0=float(om), m0=float(m0),
-                   af0=float(rng.uniform(-2e-4, 2e-4)))
-        pos = sv_pos_vel_clock(Ephemeris.stack([eph], "cpu"), [TOW0])["pos"][0]
-        los = pos.numpy() - usr
-        up = usr / np.linalg.norm(usr)
-        el = np.rad2deg(np.arcsin(np.dot(los, up) / np.linalg.norm(los)))
-        if el < min_el_deg:
-            continue
-        east = np.cross([0.0, 0.0, 1.0], up)
-        east /= np.linalg.norm(east)
-        north = np.cross(up, east)
-        az = np.arctan2(np.dot(los, east), np.dot(los, north))
-        if any(abs((az - a + np.pi) % (2 * np.pi) - np.pi) < 0.5
-               for a in az_used):
-            continue
-        az_used.append(az)
-        picked.append(eph)
-        if len(picked) == n_sv:
-            return picked
-    raise RuntimeError("not enough visible candidates")
 
 
 def evidence(tag: str, **kw) -> None:
@@ -1310,7 +1289,7 @@ def phase_main_path(dev: torch.device, workdir: str,
     cfg = cfg_e2e()
     S = cfg.signal.samples_per_ms
     usr = llh2xyz(np.asarray(TRUTH_LLH)).numpy()
-    ephs = visible_constellation(len(PRNS))
+    ephs = scenario.visible_constellation(len(PRNS), truth_llh=TRUTH_LLH)
     gs = GeometrySignal(
         cfg, [GeometrySV(prn=p, eph=e, amplitude=AMP_SCALE * a)
               for p, e, a in zip(PRNS, ephs, AMPS)],
@@ -1972,6 +1951,134 @@ def phase_multi_process(workdir: str, cli_files: dict) -> dict:
     return out
 
 
+LAUNCH_LINE = (r"kernel launches, rank (\d+): track_chunk (\d+), "
+               r"correlator_bank_windows (\d+), correlator_bank (\d+)")
+
+
+def phase_cli_world(workdir: str, cli_files: dict, cli_res: dict) -> dict:
+    """The command line under a torchrun world of RANKS ranks sharing the
+    card (gloo), cold (its own --out and --artifacts), over phase 6's file
+    with phase 6's arguments.  Gates: exit code 0; the table, the usable
+    SVs and the WLS and VT lines printed once; the same PRNs and usable SVs
+    as phase 6; the .mat set held against phase 6's
+    (pdist.compare_mat_exports); each rank's launch line with B1, B3 and B2
+    above 0."""
+    out = os.path.join(workdir, "out")
+    args = [cli_files["path"], "--preset", "opensky", "--ct-ms",
+            str(CLI_CT_ROWS), "--vt-ms", str(CLI_VT_MS), "--no-plots",
+            "--dist-backend", "gloo", "--dist-timeout", "600"]
+    argv = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(RANKS), "-m", "gps_sdr_tpu_torch.cli"]
+            + args + ["--out", out, "--artifacts",
+                      os.path.join(out, "artifacts")])
+    # the host's 8 cores split between the ranks (torchrun would give 1)
+    env = dict(os.environ, PYTHONPATH=ROOT, GLOO_SOCKET_IFNAME="lo",
+               OMP_NUM_THREADS=str(8 // RANKS))
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, timeout=900,
+                       cwd=ROOT, env=env)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"the command's world exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    lines = r.stdout.splitlines()
+    head = "PRN   SNR[dB]  Doppler[Hz]  FineDoppler[Hz]  CodeDelay[smp]"
+    once = {k: sum(l.startswith(k) for l in lines)
+            for k in (head, "usable SVs", "WLS: ", "VT/EKF: ")}
+    at = lines.index(head)
+    acquired = [int(l.split()[0]) for l in lines[at + 1:at + 1 + len(PRNS)]]
+    usable = re.search(r"usable SVs \(complete healthy ephemeris\): "
+                       r"\[([\d, ]*)\]", r.stdout)
+    usable = [int(p) for p in usable.group(1).split(",")] if usable else []
+    ranks = {int(m[0]): dict(track_chunk=int(m[1]),
+                             correlator_bank_windows=int(m[2]),
+                             correlator_bank=int(m[3]))
+             for m in re.findall(LAUNCH_LINE, r.stdout)}
+    mat = pdist.compare_mat_exports(
+        os.path.join(out, "mat"),
+        os.path.join(os.path.dirname(cli_files["artifacts"]), "mat"))
+    res = dict(
+        command=" ".join(["python -m torch.distributed.run --standalone "
+                          f"--nproc-per-node {RANKS} -m gps_sdr_tpu_torch.cli",
+                          "<capture>"] + args[1:] + ["--out", "<dir>"]),
+        ranks_n=RANKS, wall_s=wall, rc=r.returncode, printed_once=once,
+        acquired=acquired, usable_svs=usable,
+        wls_line=next(l for l in lines if l.startswith("WLS: ")),
+        vt_line=next(l for l in lines if l.startswith("VT/EKF: ")),
+        mat_files=mat["files"], mat_differ=mat["differ"],
+        mat_outside=mat["outside"], launches_by_rank=ranks)
+    evidence("cli_world", **res)
+    if not (all(v == 1 for v in once.values())
+            and acquired == cli_res["acquired"]
+            and usable == cli_res["usable_svs"]
+            and mat["ok"] and len(mat["files"]) == 7
+            and sorted(ranks) == list(range(RANKS))
+            and all(min(c.values()) > 0 for c in ranks.values())):
+        raise AssertionError(f"phase 8: {res}\n{r.stdout[-3000:]}")
+    return res
+
+
+def phase_results(dev: torch.device, workdir: str, smi: str) -> dict:
+    """The results record (python -m gps_sdr_tpu_torch.results --no-plots)
+    in a process of its own, its scaling probe at 1 and 2 ranks on the
+    card.  Gates: the scenario's 5 PRNs among those acquired and exactly
+    those 5 usable, WLS and VT medians under WLS_GATE_M, RESULTS.md with
+    the card and its power limit at its head and the scaling table filled
+    for 1 and 2 ranks, B1 and B2 launched.  A noise peak of the capture may
+    cross the 12 dB threshold too (the card's draw gives PRN 32 at
+    12.09 dB, which decodes nothing), so the acquisition is also held
+    against a witness: the same capture written again on the card (the same
+    seeded draw) and acquired by the plain version on the CPU must give the
+    same PRNs and code delays and SNRs within 1e-3 dB
+    (tests/test_torch_slice.py's bound)."""
+    out = os.path.join(workdir, "results_torch")
+    argv = [sys.executable, "-m", "gps_sdr_tpu_torch.results", out,
+            "--no-plots", "--scaling-ranks", "1,2"]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, timeout=900,
+                       cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"the results command exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    with open(os.path.join(out, "RESULTS.md")) as f:
+        text = f.read()
+    rows = {int(m[0]): m[1] for m in re.findall(
+        r"^\| (\d+) \| (.*) \|$", text, re.M)}
+    res = dict(command="python -m gps_sdr_tpu_torch.results <dir> "
+                       "--no-plots --scaling-ranks 1,2", wall_s=wall,
+               **{k: v for k, v in rec.items() if k != "out_dir"},
+               scaling_rows=rows, files=sorted(os.listdir(out)))
+    # the witness: the record's capture again, acquired on the CPU
+    cap = os.path.join(workdir, "capture.bin")
+    src = scenario.write_capture(cap, scenario.geometry_signal(
+        scenario.TOW0, device=dev))
+    wit = run_acquisition(src, scenario.CFG, device="cpu")
+    os.remove(cap)
+    res["witness_cpu"] = dict(
+        acquired=[int(p) for p in wit.sv],
+        snr_db=[float(x) for x in wit.snr_db],
+        code_delay=[int(x) for x in wit.code_delay])
+    evidence("results", **res)
+    want = sorted(scenario.SCN_PRNS)
+    if not (res["witness_cpu"]["acquired"] == rec["acquired"]
+            and res["witness_cpu"]["code_delay"] == rec["acquired_delay"]
+            and np.allclose(res["witness_cpu"]["snr_db"],
+                            rec["acquired_snr_db"], rtol=0, atol=1e-3)
+            and set(want) <= set(rec["acquired"])
+            and sorted(rec["usable"]) == want
+            and rec["wls_median_m"] < WLS_GATE_M
+            and rec["vt_median_m"] < WLS_GATE_M
+            and f"- Device: {smi}" in text.splitlines()
+            and sorted(rows) == [1, 2]
+            and all(len(row.split("|")) == 8 for row in rows.values())
+            and rec["launches"]["track_chunk"] > 0
+            and rec["launches"]["correlator_bank"] > 0):
+        raise AssertionError(f"phase 9: {res}\n{text}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs a GPU",
@@ -1981,7 +2088,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_device_and_build()
+    smi = phase_device_and_build()
     kvp, shared = phase_kernel_vs_plain(dev)
     bank = phase_bank_vs_plain(dev, shared)
     win = phase_windows_vs_plain(dev, shared)
@@ -1990,7 +2097,7 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     workdirs = [tempfile.mkdtemp(prefix="chip_smoke_",
                                  dir=os.path.join(ROOT, "build"))
-                for _ in range(6)]
+                for _ in range(8)]
     try:
         main_res, main_out = phase_main_path(dev, workdirs[0],
                                              "--profile-vt" in sys.argv[1:])
@@ -2002,11 +2109,14 @@ def main() -> int:
         del main_out
         gc.collect()
         cli_res, cli_files = phase_cli(dev, workdirs[4],
-                                       visible_constellation(len(PRNS)))
+                                       scenario.visible_constellation(
+                                           len(PRNS), truth_llh=TRUTH_LLH))
         # the ranks share the card: the parent's cached blocks go first
         gc.collect()
         torch.cuda.empty_cache()
         mp_res = phase_multi_process(workdirs[5], cli_files)
+        cw_res = phase_cli_world(workdirs[6], cli_files, cli_res)
+        res_res = phase_results(dev, workdirs[7], smi)
     finally:
         for d in workdirs:
             shutil.rmtree(d, ignore_errors=True)
@@ -2024,12 +2134,17 @@ def main() -> int:
     # 1 ms scalar path and the VT path of phase 3, the 10 ms schedules of
     # phase 4; `launches_by_path` adds the time-segmented eph stage, the
     # command line (counted by the command's own process) and each rank of
-    # phase 7 (counted by the rank's process: its Receiver, then its ingest)
+    # phase 7 (counted by the rank's process: its Receiver, then its ingest),
+    # each rank of the command's world (phase 8, printed by rank 0) and the
+    # results record (phase 9, counted by its process)
     cli_launches = cli_res["launches"]
 
     def ranks_of(name):
         return [r["launches"][name] + r["ingest_launches"][name]
                 for r in mp_res["ranks"]]
+
+    def world_of(name):
+        return [cw_res["launches_by_rank"][r][name] for r in range(RANKS)]
 
     print(json.dumps({"kernels": [{
         "name": "track_chunk", "route": "cuda",
@@ -2046,7 +2161,9 @@ def main() -> int:
             "reference_schedules": ref_res["track_chunk_launches"],
             "time_segments": seg_res["track_chunk_launches"],
             "cli": cli_launches["track_chunk"],
-            "multi_process_ranks": ranks_of("track_chunk")},
+            "multi_process_ranks": ranks_of("track_chunk"),
+            "cli_world_ranks": world_of("track_chunk"),
+            "results": res_res["launches"]["track_chunk"]},
         "time_segments_64ch": seg_res["track_chunk_64"]}, {
         "name": "correlator_bank", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/corr_bank.cu",
@@ -2058,7 +2175,9 @@ def main() -> int:
         "library_ms": None, "launches_by_path": {
             "main_path": main_res["correlator_bank_launches"],
             "cli": cli_launches["correlator_bank"],
-            "multi_process_ranks": ranks_of("correlator_bank")}}, {
+            "multi_process_ranks": ranks_of("correlator_bank"),
+            "cli_world_ranks": world_of("correlator_bank"),
+            "results": res_res["launches"]["correlator_bank"]}}, {
         "name": "correlator_bank_windows", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/corr_bank.cu",
         "replaces": "gps_sdr_tpu/ops/pallas_correlator.py:122",
@@ -2069,7 +2188,9 @@ def main() -> int:
         "library_ms": None, "launches_by_path": {
             "reference_schedules": ref_res["correlator_bank_windows_launches"],
             "cli": cli_launches["correlator_bank_windows"],
-            "multi_process_ranks": ranks_of("correlator_bank_windows")}}]}),
+            "multi_process_ranks": ranks_of("correlator_bank_windows"),
+            "cli_world_ranks": world_of("correlator_bank_windows"),
+            "results": res_res["launches"]["correlator_bank_windows"]}}]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

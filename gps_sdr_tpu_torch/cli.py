@@ -27,16 +27,37 @@ The CT stage needs the first decoded subframe inside its record: `decode`
 looks for it from 3000 ms of the eph record on, so `--ct-ms` must reach
 past that subframe's row (a switched CT record, `--preset opensky`, counts
 rows).
+
+Under `torchrun` (WORLD_SIZE > 1 in the environment) the command joins the
+world before any stage runs and `Receiver(mesh="auto")` shards every stage
+over the ranks: acquisition over PRNs, tracking and vector tracking over
+channels, each WLS epoch's normal equations reduced.  Each rank takes its
+own card (`parallel/mesh.rank_device`), or the CPU with `--device cpu`.
+Rank 0 alone prints and writes files; it prints one `kernel launches` line
+per rank.  `--dist-backend` is nccl on cards (one card per rank) and gloo
+with `--device cpu`; gloo also lets ranks share a card.
+
+    # one rank per card, on a node with 4 cards:
+    torchrun --standalone --nproc-per-node 4 -m gps_sdr_tpu_torch.cli \
+        --preset opensky /path/to/Opensky.bin --out results_opensky
+
+    # two ranks on the CPU:
+    torchrun --standalone --nproc-per-node 2 -m gps_sdr_tpu_torch.cli \
+        capture.bin --fs 5e6 --f-if 1.25e6 --ct-ms 8500 --vt-ms 1000 \
+        --device cpu --dist-backend gloo --out sdr_out
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import os
 import sys
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from gps_sdr_tpu_torch.config import (FileConfig, ReceiverConfig,
                                       SignalConfig, opensky_config,
@@ -101,30 +122,99 @@ def parser() -> argparse.ArgumentParser:
                          "'cpu' for the CPU)")
     ap.add_argument("--no-plots", action="store_true",
                     help="skip the Task 1-5 plots (they need matplotlib)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="collective backend under torchrun (default: nccl "
+                         "on cards, gloo with --device cpu)")
+    ap.add_argument("--dist-timeout", type=float, default=1800.0,
+                    help="seconds a rank waits for the others under "
+                         "torchrun before the world is ended")
     return ap
+
+
+def join_world(args) -> bool:
+    """Join the world torchrun describes in the environment (WORLD_SIZE >
+    1, with RANK, LOCAL_WORLD_SIZE and the rendezvous address); False, and
+    nothing done, without one.  Raises before joining where the world
+    cannot run as asked: a device other than cpu (each rank takes its own
+    card), nccl on the CPU, or nccl with more ranks on this node than
+    cards."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    if args.device not in (None, "cpu"):
+        raise ValueError(
+            f"--device {args.device} in a world of ranks: each rank takes "
+            "its own card; leave --device out, or pass --device cpu")
+    backend = args.dist_backend or ("gloo" if args.device == "cpu"
+                                    else "nccl")
+    if backend == "nccl" and args.device == "cpu":
+        raise ValueError("--dist-backend nccl runs on cards; with --device "
+                         "cpu pass --dist-backend gloo")
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                   os.environ["WORLD_SIZE"]))
+        cards = torch.cuda.device_count()
+        if local > cards:
+            raise RuntimeError(
+                f"{local} ranks on this node and {cards} CUDA cards: nccl "
+                "needs a card per rank; pass --dist-backend gloo to share "
+                "cards (or run on the CPU with --device cpu)")
+    dist.init_process_group(
+        backend, timeout=datetime.timedelta(seconds=args.dist_timeout))
+    return True
+
+
+def launch_lines(rx: Receiver) -> list:
+    """The `kernel launches` lines: this process's counts, or in a world
+    one line per rank (each rank's counts, gathered)."""
+    from gps_sdr_tpu_torch.ops import corr_bank, track_chunk
+
+    counts = [track_chunk.track_chunk.launches,
+              corr_bank.correlator_bank_windows.launches,
+              corr_bank.correlator_bank.launches]
+    fmt = ("track_chunk {}, correlator_bank_windows {}, "
+           "correlator_bank {}")
+    if rx.mesh is None:
+        return [f"kernel launches: {fmt.format(*counts)}"]
+    every = rx.mesh.all_gather_rows(
+        torch.tensor([counts], dtype=torch.int64, device=rx.device))
+    return [f"kernel launches, rank {r}: {fmt.format(*row)}"
+            for r, row in enumerate(every.tolist())]
 
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
+    joined = join_world(args)
+    try:
+        return run(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def run(args) -> int:
+    """The stages of the command, after `main` has joined any world."""
     cfg = build_config(args)
     src = IFSampleSource(args.capture, cfg.file)
     art = args.artifacts or os.path.join(args.out, "artifacts")
     rx = Receiver(cfg, src, artifact_dir=art, device=args.device)
+    # rank 0 of a world prints; the other ranks run the same stages quietly
+    quiet = rx.mesh is not None and rx.mesh.rank != 0
+    print_ = (lambda *a, **k: None) if quiet else print
 
     acq = rx.acquisition()
-    print(format_acquisition_table(acq, cfg.signal.f_if))
+    print_(format_acquisition_table(acq, cfg.signal.f_if))
     rx.track_for_eph_reference()        # the reference's 3-phase schedule
     rx.decode()
     svs = rx.usable_svs()
-    print(f"usable SVs (complete healthy ephemeris): {svs}")
+    print_(f"usable SVs (complete healthy ephemeris): {svs}")
 
     truth = llh2xyz(np.asarray(cfg.solu.truth_llh)).numpy()
     ct_kw = {} if args.ct_ms is None else dict(n_ms=args.ct_ms)
     _, nav = rx.ct_position(**ct_kw)
     err = np.linalg.norm(nav.usr_pos - truth, axis=1)
-    print(f"WLS: {len(nav.local_time)} epochs, "
-          f"median error vs configured truth {np.median(err):.1f} m, "
-          f"LLH {nav.usr_pos_llh[-1][0]:.6f} {nav.usr_pos_llh[-1][1]:.6f}")
+    print_(f"WLS: {len(nav.local_time)} epochs, "
+           f"median error vs configured truth {np.median(err):.1f} m, "
+           f"LLH {nav.usr_pos_llh[-1][0]:.6f} {nav.usr_pos_llh[-1][1]:.6f}")
 
     vt_kw = None
     if not args.no_vt and cfg.cmn.vt_enable:
@@ -133,8 +223,8 @@ def main(argv=None) -> int:
             vt_kw["ct_n_ms"] = args.ct_ms
         _, sol = rx.vt_position(**vt_kw)
         verr = np.linalg.norm(sol.usr_pos - truth, axis=1)
-        print(f"VT/EKF: {len(sol.local_time)} ms, "
-              f"median error {np.median(verr):.1f} m")
+        print_(f"VT/EKF: {len(sol.local_time)} ms, "
+               f"median error {np.median(verr):.1f} m")
 
     os.makedirs(args.out, exist_ok=True)
     rx.export_mat(os.path.join(args.out, "mat"), ct_kw=ct_kw,
@@ -142,16 +232,12 @@ def main(argv=None) -> int:
     if not args.no_plots:
         rx.report(os.path.join(args.out, "plots"), vt=vt_kw is not None,
                   ct_kw=ct_kw, vt_kw=vt_kw)
-    if rx.device.type == "cuda":
-        from gps_sdr_tpu_torch.ops import corr_bank, track_chunk
-        print("kernel launches: "
-              f"track_chunk {track_chunk.track_chunk.launches}, "
-              "correlator_bank_windows "
-              f"{corr_bank.correlator_bank_windows.launches}, "
-              f"correlator_bank {corr_bank.correlator_bank.launches}")
-    print(f"artifacts: {art}\nexports:   {args.out}/mat")
+    if rx.device.type == "cuda" or rx.mesh is not None:
+        for line in launch_lines(rx):
+            print_(line)
+    print_(f"artifacts: {art}\nexports:   {args.out}/mat")
     if not args.no_plots:
-        print(f"plots:     {args.out}/plots")
+        print_(f"plots:     {args.out}/plots")
     return 0
 
 

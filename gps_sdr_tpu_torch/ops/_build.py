@@ -4,11 +4,15 @@ Each `csrc/<name>.cu` becomes `build/<name>-<hash>.so`, a shared library
 with a plain C entry point that its wrapper loads with ctypes.  The hash
 covers the source and every header under `csrc/`, so an edit rebuilds.
 Nothing here runs at import: a machine without nvcc imports the package
-and fails only when a kernel is asked for.
+and fails only when a kernel is asked for.  Processes that start together
+(the ranks of a world) compile each source once: the first takes the
+source's lock file in the build directory and compiles, the others wait on
+it and load what it built.
 """
 
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import shutil
@@ -39,8 +43,9 @@ def _nvcc() -> str:
 def build_library(name: str, build_dir: Path = BUILD_DIR
                   ) -> Tuple[Path, str, float]:
     """Compile `csrc/<name>.cu` for sm_90a into `build_dir` (skipped when a
-    library of the same sources is already there).  Returns (library path,
-    compiler log, seconds spent compiling)."""
+    library of the same sources is already there, or another process built
+    it while this one waited for the source's lock).  Returns (library
+    path, compiler log, seconds spent compiling)."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
@@ -50,6 +55,15 @@ def build_library(name: str, build_dir: Path = BUILD_DIR
     if out.exists():
         return out, "", 0.0
     build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)      # released when `lock` closes
+        if out.exists():
+            return out, "", 0.0
+        return _compile(name, src, out, build_dir)
+
+
+def _compile(name: str, src: Path, out: Path, build_dir: Path
+             ) -> Tuple[Path, str, float]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
     os.close(fd)
     # -fmad=false: no a*b+c contraction, so a kernel rounds every operation

@@ -24,6 +24,11 @@ checks what its rank ends with and returns a small dict.
   held against single-process Receivers making the same calls: one that
   ran from scratch (its artifacts in `ref_dir`), and one that runs the VT
   stage again alone from this run's own artifacts.
+- **scaling**: the probe of the JAX package's `bench.bench_scaling_curve`:
+  the same problem for a world of D ranks (the acquisition grid over 2·D
+  PRNs, 2·D channels tracked through `track_chunk`) timed unsharded by rank
+  0 alone, then sharded over the D ranks; it returns the times and checks
+  nothing.
 
 The small fixtures (`_small_cfg`, `_vt_fixture`, `write_ingest_capture`)
 are the JAX package's, copied.  The receiver leg's workload, and the ingest
@@ -71,6 +76,9 @@ VT_CHANNELS, VT_STEPS, VT_CHUNK_MS = 8, 40, 25
 # the exact fields of the VT records (tests/test_mesh_pipeline.py's split)
 VT_EXACT = ("corr", "carr_err", "code_err", "num_sample", "absolute_sample",
             "rem_phase")
+# the scaling leg's problem beside its size (bench.py:548-551, 590-591):
+# blocks and Doppler bins of the acquisition grid; timed calls of each side
+SCALING_BLOCKS, SCALING_FREQS, SCALING_REPS = 4, 9, 5
 
 
 def _small_cfg():
@@ -331,6 +339,90 @@ def _vt_equal(trk_a, sol_a, trk_b, sol_b) -> dict:
     return {"bit_equal": not differ, "split_ok": close, "differ": differ}
 
 
+# `.mat` exports of a world against one process's (`compare_mat_exports`):
+# the WLS fixes within the receiver leg's bounds (position 1e-6 m, clock
+# 1e-5 m, velocity 1e-6 m/s, DOP 1e-9; latitude and longitude in degrees
+# at 1e-11, ~1e-6 m; elevation and azimuth 1e-9 degrees), every other
+# navSolCT field and every other file exact, but the VT files, held to the
+# split above: the exact fields exact, the others within atol 1e-4 and
+# rtol 1e-9
+WLS_MAT_TOL = dict(usrPos=1e-6, usrPosENU=1e-6,
+                   usrPosLLH=np.array([1e-11, 1e-11, 1e-6]), clkBias=1e-5,
+                   usrVel=1e-6, usrVelENU=1e-6, clkDrift=1e-6, DOP=1e-9,
+                   satEA=1e-9, satAZ=1e-9)
+VT_MAT_EXACT = ("E_i", "E_q", "P_i", "P_q", "L_i", "L_q", "carrError",
+                "codeError", "absoluteSample", "codedelay", "remCarrPhase",
+                "amplitude", "navi_data", "navi_dataL035", "prRate")
+VT_SPLIT_ATOL, VT_SPLIT_RTOL = 1e-4, 1e-9
+
+
+def _mat_leaves(x, path):
+    """(path, array) of every numeric leaf of a loadmat value, in order:
+    struct fields by name, cells element by element."""
+    x = np.asarray(x)
+    if x.dtype.names:
+        for idx in np.ndindex(x.shape):
+            for name in x.dtype.names:
+                yield from _mat_leaves(x[idx][name], path + (name,))
+    elif x.dtype == object:
+        for idx in np.ndindex(x.shape):
+            yield from _mat_leaves(x[idx], path)
+    else:
+        yield path, x
+
+
+def _mat_tolerance(var: str, field: str):
+    """(atol, rtol) of a leaf of variable `var`, field `field` (None:
+    exact)."""
+    if var == "navSolutionsCT":
+        atol = WLS_MAT_TOL.get(field)
+        return None if atol is None else (atol, 0.0)
+    if var == "navSolutionsVT" or var == "CN0_VT" or (
+            var == "TckResultVT" and field not in VT_MAT_EXACT):
+        return VT_SPLIT_ATOL, VT_SPLIT_RTOL
+    return None
+
+
+def compare_mat_exports(dir_a: str, dir_b: str) -> dict:
+    """The `.mat` sets of two `export_mat` runs (a world's and one
+    process's) held to WLS_MAT_TOL and the VT split: the file names, the
+    fields that differ at all, those outside their tolerance, and `ok`."""
+    import scipy.io as sio
+
+    files = sorted(os.listdir(dir_a))
+    out = {"files": files, "same_files": files == sorted(os.listdir(dir_b)),
+           "differ": {}, "outside": {}}
+    if not out["same_files"]:
+        out["ok"] = False
+        return out
+    for name in files:
+        a, b = (sio.loadmat(os.path.join(d, name)) for d in (dir_a, dir_b))
+        keys = sorted(k for k in a if not k.startswith("__"))
+        if keys != sorted(k for k in b if not k.startswith("__")):
+            out["outside"].setdefault(name, []).append("variables")
+            continue
+        for var in keys:
+            la, lb = list(_mat_leaves(a[var], (var,))), list(
+                _mat_leaves(b[var], (var,)))
+            if [p for p, _ in la] != [p for p, _ in lb]:
+                out["outside"].setdefault(name, []).append(var)
+                continue
+            for (path, x), (_, y) in zip(la, lb):
+                field = path[-1]
+                if x.shape == y.shape and np.array_equal(x, y):
+                    continue
+                if field not in out["differ"].setdefault(name, []):
+                    out["differ"][name].append(field)
+                tol = _mat_tolerance(var, field)
+                if tol is None or x.shape != y.shape or not np.all(
+                        np.abs(x - y) <= tol[0] + tol[1] * np.abs(y)):
+                    if field not in out["outside"].setdefault(name, []):
+                        out["outside"][name].append(field)
+    out["outside"] = {k: v for k, v in out["outside"].items() if v}
+    out["ok"] = not out["outside"]
+    return out
+
+
 def _leg_vt(mesh, job) -> dict:
     from gps_sdr_tpu_torch.io.ifdata import IFSampleSource
     from gps_sdr_tpu_torch.receiver.vt import run_vector_tracking
@@ -557,8 +649,88 @@ def _leg_receiver(mesh, job) -> dict:
     return res
 
 
+def _timed(fn, device, before=None) -> list:
+    """Seconds of each of SCALING_REPS calls of `fn` after one untimed
+    call, each ended by a device synchronisation; `before` runs untimed
+    ahead of every call."""
+    fn()
+    _sync(device)
+    times = []
+    for _ in range(SCALING_REPS):
+        if before is not None:
+            before()
+        t = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append(time.perf_counter() - t)
+    return times
+
+
+def _leg_scaling(mesh, job) -> dict:
+    """The same problem for this world's size D, run unsharded by rank 0
+    alone while the others wait (on the CPU with the threads of the whole
+    world, so both sides use the same cores), then sharded over the D ranks
+    (each call started together, after a barrier): the acquisition grid
+    over 2·D PRNs (`sharded_acquisition_power`) and `steps` blocks of 2·D
+    channels at 1.023 MHz through `track_chunk` (`sharded_tracker`, the
+    records gathered).  Rank 0's seconds per call of each."""
+    from gps_sdr_tpu_torch.acquisition import acquisition_power_grid
+    from gps_sdr_tpu_torch.ops.track_chunk import track_chunk
+    from gps_sdr_tpu_torch.parallel.acquisition import (
+        sharded_acquisition_power)
+    from gps_sdr_tpu_torch.parallel.tracking import (shard_channels,
+                                                     sharded_tracker)
+    from gps_sdr_tpu_torch.tracking import (TrackParams, chip_tables,
+                                            init_track_state)
+
+    size, dev, d = job["scaling"], mesh.device, mesh.size
+    n, S, steps = 2 * d, size["samples"], size["steps"]
+    rng = np.random.default_rng(0)
+
+    def c64(rows):
+        z = rng.normal(size=(rows, S)) + 1j * rng.normal(size=(rows, S))
+        return torch.as_tensor(z.astype(np.complex64), device=dev)
+
+    blocks, carriers = c64(SCALING_BLOCKS), c64(SCALING_FREQS)
+    code_fft = torch.as_tensor(np.fft.fft(rng.choice(
+        [-1.0, 1.0], size=(n, S))).astype(np.complex64), device=dev)
+    cfg = _small_cfg()
+    spec = TrackParams.epl(cfg).chunk_spec(cfg)
+    raw = torch.as_tensor(rng.integers(
+        -64, 64, size=((steps + 2) * cfg.signal.samples_per_ms + spec.blk, 2)
+    ).astype(np.int8), device=dev)
+    state = init_track_state(cfg, np.zeros(n, np.int64),
+                             np.full(n, cfg.signal.f_if + 1000.0), dev)
+    state = state._replace(ptr=torch.zeros(n, dtype=torch.int64, device=dev))
+    chips = chip_tables(list(range(1, n + 1)), dev)
+
+    out = {"ranks": d, "prns": n, "channels": n, "samples": S,
+           "steps": steps}
+    if mesh.rank == 0:
+        threads = torch.get_num_threads()
+        if dev.type == "cpu":
+            torch.set_num_threads(threads * d)
+        try:
+            out["acq_unsharded_s"] = _timed(lambda: acquisition_power_grid(
+                blocks, carriers, code_fft), dev)
+            out["track_unsharded_s"] = _timed(lambda: track_chunk(
+                raw, 0, state, chips, spec, steps), dev)
+        finally:
+            torch.set_num_threads(threads)
+    mesh.barrier()
+    power = sharded_acquisition_power(mesh)
+    out["acq_sharded_s"] = _timed(lambda: power(blocks, carriers, code_fft),
+                                  dev, mesh.barrier)
+    mine = shard_channels(mesh, state, chips)      # 2·D rows: no padding
+    tracker = sharded_tracker(mesh, track_chunk, n)
+    out["track_sharded_s"] = _timed(lambda: tracker(raw, 0, *mine, spec,
+                                                    steps), dev, mesh.barrier)
+    return out
+
+
 LEGS = {"track": _leg_track, "epoch": _leg_epoch, "vt": _leg_vt,
-        "ingest": _leg_ingest, "receiver": _leg_receiver}
+        "ingest": _leg_ingest, "receiver": _leg_receiver,
+        "scaling": _leg_scaling}
 
 
 # ---------------------------------------------------------------------------
@@ -602,8 +774,8 @@ def _free_port() -> int:
 
 def launch(legs: Sequence[str] = ("track", "epoch"), n_processes: int = 2,
            device=None, timeout_s: int = 900, work_dir: Optional[str] = None,
-           receiver: Optional[dict] = None, ingest: Optional[dict] = None
-           ) -> Dict[int, dict]:
+           receiver: Optional[dict] = None, ingest: Optional[dict] = None,
+           scaling: Optional[dict] = None) -> Dict[int, dict]:
     """Spawn `n_processes` workers in one gloo world (a free port on
     localhost), run `legs` on every rank and return {rank: result dict}.
     Raises on any worker's failure or time-out (every worker is stopped).
@@ -615,7 +787,9 @@ def launch(legs: Sequence[str] = ("track", "epoch"), n_processes: int = 2,
     `vt_position` calls (`ct_kw`, `vt_kw`; the eph stage is the reference
     schedule).  `ingest`: the ingest leg's `cfg`, `capture`, `prns`, code
     `delays`, `fine` frequencies, `n_ms`, `segments` and `halo_ms`
-    (default: the small fixture, its capture written into `work_dir`)."""
+    (default: the small fixture, its capture written into `work_dir`).
+    `scaling`: the scaling leg's problem, `samples` per acquisition block
+    and tracking `steps`."""
     unknown = set(legs) - set(LEGS)
     if unknown:
         raise ValueError(f"unknown legs {sorted(unknown)}")
@@ -629,7 +803,7 @@ def launch(legs: Sequence[str] = ("track", "epoch"), n_processes: int = 2,
     job_path = os.path.join(work_dir, "job.pkl")
     with open(job_path, "wb") as f:
         pickle.dump(dict(legs=list(legs), device=device, receiver=receiver,
-                         ingest=ingest, out_dir=work_dir), f)
+                         ingest=ingest, scaling=scaling, out_dir=work_dir), f)
     port = _free_port()
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))

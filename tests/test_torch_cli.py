@@ -4,8 +4,9 @@ CPU.
 
 - `build_config` equals the JAX script's (loaded with importlib; the
   script is not edited) for every preset, with and without --skip-ms;
-- the option set is the JAX script's with `--cpu` replaced by `--device`
-  and `--no-plots` added;
+- the option set is the JAX script's with `--cpu` replaced by `--device`,
+  and `--no-plots` and the torchrun world's `--dist-backend` and
+  `--dist-timeout` added;
 - a subprocess run with `--device cpu` over a capture of its own: the
   scenario constellation (5 SVs, transmit-time geometry + atmosphere) for
   41.2 s at 2.5 MHz, synthesized by the port into pytest's tmp directory
@@ -95,7 +96,8 @@ def test_options_are_the_jax_scripts(monkeypatch):
     jax_opts = _options(mod.main)
     port_opts = _options(lambda: cli.main(["--help"]))
     assert "--cpu" in jax_opts and "--preset" in jax_opts
-    assert port_opts == (jax_opts - {"--cpu"}) | {"--device", "--no-plots"}
+    assert port_opts == (jax_opts - {"--cpu"}) | {
+        "--device", "--no-plots", "--dist-backend", "--dist-timeout"}
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

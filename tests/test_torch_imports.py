@@ -50,12 +50,13 @@ def test_port_imports_without_jax():
     "gps_sdr_tpu_torch.parallel.mesh", "gps_sdr_tpu_torch.parallel.acquisition",
     "gps_sdr_tpu_torch.parallel.tracking", "gps_sdr_tpu_torch.parallel.epoch",
     "gps_sdr_tpu_torch.parallel.vt",
-    "gps_sdr_tpu_torch.parallel.distributed"])
+    "gps_sdr_tpu_torch.parallel.distributed", "gps_sdr_tpu_torch.results",
+    "gps_sdr_tpu_torch.io.scenario"])
 def test_walk_reaches_module(module):
     """The walk above covers the modules of the later slices (vector
     tracking; the legacy filter, `.mat` in and out, analysis; the command
     line and time-segmented tracking; the mesh of ranks and its sharded
-    stages)."""
+    stages; the results record and its scenario)."""
     import pkgutil
 
     import gps_sdr_tpu_torch
