@@ -110,6 +110,25 @@ Phases, each printing one line of evidence:
    over the same capture, WLS and VT medians < 120 m, RESULTS.md written
    with the card and its power limit at its head and the scaling table
    filled for 1 and 2 ranks, B1 and B2 launched.
+10. The Urban front end (after phase 8, phase 6's capture deleted first): a
+   47 s capture of the e2e scenario's 8 SVs at the `urban` preset's front
+   end, 26 MHz int16 IQ at zero IF (the geometry's Dopplers of both signs),
+   phase 6's C/N0, the front-end DC offset 230 − 95j added to the samples
+   before they are quantized, the receiver at the preset's truth,
+   synthesized on the card into a file
+   under build/; then `python -m gps_sdr_tpu_torch.cli <file> --preset
+   urban --ct-ms 3300 --vt-ms 1000 --no-plots --out <dir>` in a process of
+   its own, with phase 6's gates, negative fine Dopplers among the 8 PRNs
+   and the `.mat` set read back at 4 bytes a sample.  In this process, on
+   the command's capture from its acquisition: track_chunk over a
+   1000-block E/P/L chunk and a 300-block 25-tap chunk, the bank over 10 ms
+   windows at 3 and 25 taps and the fetching bank at 3 taps (split, so the
+   DC kernel runs first, and on one CTA per channel), all with DC removal,
+   each bit for bit against its plain version, with times and bounds; the
+   capture uploaded to the card as int16, rows equal to the file's; then
+   the VT stage again from the command's CT artifacts, and 200 ms of its
+   vt_scan (DC removal on) eager against replayed as CUDA graphs, every
+   field and the end state bit for bit.
 
 Receiver.report (the plots) is not run here: it needs matplotlib, which the
 GPU machine does not have (hence the command's --no-plots); the CPU tests
@@ -146,9 +165,10 @@ from gps_sdr_tpu_torch.acquisition import run_acquisition
 from gps_sdr_tpu_torch.config import (CommonConfig, FileConfig,
                                       ReceiverConfig, SignalConfig,
                                       SolutionConfig, TrackConfig,
-                                      opensky_config)
+                                      opensky_config, urban_config)
 from gps_sdr_tpu_torch.geo.coords import llh2xyz
-from gps_sdr_tpu_torch.io.ifdata import DeviceStager, IFSampleSource
+from gps_sdr_tpu_torch.io.ifdata import (DeviceStager, IFSampleSource,
+                                         upload_capture)
 from gps_sdr_tpu_torch.io import matref
 from gps_sdr_tpu_torch.io.synthetic import (GeometrySignal, GeometrySV,
                                             SyntheticSV, generate_if_samples,
@@ -197,6 +217,10 @@ PAIR_2_31 = 2 ** 31      # the segments' last chunk reads past this pair
 CLI_MS, CLI_CT_ROWS, CLI_VT_MS = 47000, 3300, 1000
 # phase 7: ranks of the world over the command's capture
 RANKS = 2
+# phase 10, the `urban` preset's front end (26 MHz int16, zero IF): the
+# amplitudes and the noise ×URBAN_GAIN put the samples in the int16 range
+# at phase 6's C/N0; the front end's DC offset (tests/test_urban_frontend.py)
+URBAN_GAIN, URBAN_DC = 20.0, (230, -95)
 SCAN_BLOCKS, SCAN_LEAD_MS = 100, 80     # the both-trackers segment
 PRNS = (3, 7, 16, 22, 27, 1, 8, 30)
 AMPS = (3.0, 2.6, 2.8, 2.4, 2.7, 2.2, 3.2, 2.0)
@@ -297,6 +321,37 @@ def bound_ms(n_bytes: float, n_ops: float) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=int(n_bytes), bound_operations=int(n_ops))
+
+
+def chunk_bound(state, out: dict, raw: torch.Tensor, chips: torch.Tensor,
+                spec) -> dict:
+    """`bound_ms` of one track_chunk call: the chunk's samples once (the
+    union of all block windows), the code tables, the records and state
+    written once; the operations of every sample, tap and DC removal."""
+    n_out = sum(out[f].numel() * out[f].element_size() for f in out)
+    return bound_ms(
+        union_samples(state.ptr, out["absolute_sample"][-1])
+        * raw.element_size() * 2 + chips.numel() * 4 + n_out,
+        int(out["num_sample"].sum()) * (
+            OPS_PER_SAMPLE + OPS_PER_TAP * len(spec.taps)
+            + OPS_DC * spec.remove_dc))
+
+
+def bank_bound(raw: torch.Tensor, ptr: torch.Tensor, num: torch.Tensor,
+               chips: torch.Tensor, ntaps: int, remove_dc: bool,
+               windows: bool = False) -> dict:
+    """`bound_ms` of one bank launch over blocks of `num` samples at `ptr`:
+    the samples read once (each window's own for the windows entry, the
+    union of the windows for the fetching one), the code tables, the NCO
+    words, the result written once."""
+    n = ptr.shape[0]
+    n_samples = int(num.sum())
+    read = n_samples if windows else union_samples(ptr, ptr + num)
+    return bound_ms(
+        read * 2 * raw.element_size() + chips.numel() * 4
+        + n * (5 if windows else 6) * 8 + ntaps * 8 + n * ntaps * 2 * 4,
+        n_samples * (OPS_PER_SAMPLE + OPS_PER_TAP * ntaps
+                     + OPS_DC * remove_dc))
 
 
 def union_samples(start: torch.Tensor, stop: torch.Tensor) -> int:
@@ -411,16 +466,7 @@ def phase_kernel_vs_plain(dev: torch.device) -> tuple:
         m["plain_ms"] = timed_ms(lambda: tc.track_chunk_reference(
             raw, start, state, chips, spec, n_steps), 1)
         m["blocks"] = n_steps
-        # bound: the chunk's samples once (the union of all block windows),
-        # the code tables, the records and state written once
-        stops = out["absolute_sample"]
-        n_out = sum(out[f].numel() * out[f].element_size() for f in out)
-        m.update(bound_ms(
-            union_samples(state.ptr, stops[-1]) * raw.element_size() * 2
-            + chips.numel() * 4 + n_out,
-            int(out["num_sample"].sum()) * (
-                OPS_PER_SAMPLE + OPS_PER_TAP * len(spec.taps)
-                + OPS_DC * spec.remove_dc)))
+        m.update(chunk_bound(state, out, raw, chips, spec))
         res[kind] = m
         if kind == "epl":
             tracked = end
@@ -544,20 +590,22 @@ def _kernel_variants(raw, start, state, chips, spec, out) -> dict:
     return res
 
 
-def _bank_case(raw, start, nco, chips, taps, blk, remove_dc, scale):
+def _bank_case(raw, start, nco, chips, taps, blk, remove_dc, scale,
+               fs=None):
     """One comparison: kernel (default split and one CTA per channel)
-    against plain on the same inputs; raises past the bound."""
-    dev = raw.device
+    against plain on the same inputs, at the rate `fs` (FS when None);
+    raises past the bound."""
+    dev, fs = raw.device, fs or FS
     tap_fp = cb.tap_offsets_fp(taps, dev)
     args = (raw, nco["ptr"] - start, nco["rem_chip"], nco["code_freq"],
-            nco["phase_fp"], nco["carr_fp"], nco["num"], chips, tap_fp, FS,
+            nco["phase_fp"], nco["carr_fp"], nco["num"], chips, tap_fp, fs,
             blk, remove_dc)
     out, fault = cb.correlator_bank(*args)
     one, fault1 = cb.correlator_bank(*args, n_split=1)
     ref, fault_ref = cb.correlator_bank_reference(*args)
     # the prepared launch (the tracked state's words are columns of a
     # packed state)
-    plan = cb.BankPlan(raw, chips, tap_fp, FS, blk, remove_dc)
+    plan = cb.BankPlan(raw, chips, tap_fp, fs, blk, remove_dc)
     words = tuple(t.contiguous() for t in args[1:7])
     prepared = plan(*words).clone()
     for f in (fault, fault1, fault_ref, plan.fault):
@@ -702,16 +750,10 @@ def phase_bank_vs_plain(dev: torch.device, shared: dict) -> dict:
     res["empty_launch_ms"] = timed_graph_ms(lambda: cb.empty_launch(dev), 10)
     res["empty_launch_eager_ms"] = timed_ms(lambda: cb.empty_launch(dev), 200)
 
-    # the main path's shape: 3 taps, int8 (no DC removal).  Bound: the
-    # union of the channels' windows read once, the code tables, the NCO
-    # words, the result written once
+    # the main path's shape: 3 taps, int8 (no DC removal)
     head = timed[("epl3", False)]
-    num = locked["num"]
-    head.update(bound_ms(
-        union_samples(locked["ptr"], locked["ptr"] + num) * 2
-        * raw.element_size() + chips.numel() * 4 + n * 6 * 8 + 3 * 8
-        + n * 3 * 2 * 4,
-        int(num.sum()) * (OPS_PER_SAMPLE + OPS_PER_TAP * 3)))
+    head.update(bank_bound(raw, locked["ptr"], locked["num"], chips, 3,
+                           False))
     res["main_shape"] = head
 
     # nothing is clamped: a window past the end of the chunk raises the flag
@@ -742,24 +784,26 @@ def phase_bank_vs_plain(dev: torch.device, shared: dict) -> dict:
     return res
 
 
-def _windows_case(raw, start, nco, chips, taps, blk, remove_dc, scale):
+def _windows_case(raw, start, nco, chips, taps, blk, remove_dc, scale,
+                  fs=None):
     """One comparison of the bank over windows: kernel (default split and
     one CTA per channel) against plain on the same windows, and against
-    correlator_bank reading the same samples at ptr_off; raises past the
-    bound or on any differing bit between the two kernels."""
-    dev = raw.device
+    correlator_bank reading the same samples at ptr_off, at the rate `fs`
+    (FS when None); raises past the bound or on any differing bit between
+    the two kernels."""
+    dev, fs = raw.device, fs or FS
     tap_fp = cb.tap_offsets_fp(taps, dev)
     off = nco["ptr"] - start
     cutter = cb.WindowCutter(raw, blk)
     win = cutter(off)
     words = (nco["rem_chip"], nco["code_freq"], nco["phase_fp"],
              nco["carr_fp"], nco["num"])
-    args = (win, *words, chips, tap_fp, FS, remove_dc)
+    args = (win, *words, chips, tap_fp, fs, remove_dc)
     out, fault = cb.correlator_bank_windows(*args)
     one, fault1 = cb.correlator_bank_windows(*args, n_split=1)
     ref, fault_ref = cb.correlator_bank_windows_reference(*args)
     fetched, fault_b2 = cb.correlator_bank(raw, off, *words, chips, tap_fp,
-                                           FS, blk, remove_dc)
+                                           fs, blk, remove_dc)
     for f in (fault, fault1, fault_ref, fault_b2):
         cb.raise_on_fault(f)
     err = max(float((out - ref).abs().max()), float((one - ref).abs().max()))
@@ -878,16 +922,11 @@ def phase_windows_vs_plain(dev: torch.device, shared: dict) -> dict:
     res["max_abs_err"] = max(m["max_abs_err"] for m in res["cases"].values())
     res["bitwise"] = all(m["bitwise"] for m in res["cases"].values())
 
-    # the path's shape: 10 ms blocks, 3 taps, int8 (no DC removal).
-    # Bound: each window's `num` samples read once, the code tables, the
-    # NCO words, the result written once
+    # the path's shape: 10 ms blocks, 3 taps, int8 (no DC removal)
     nums = {key: m.pop("num") for key, m in timed.items()}
     head = timed[("epl3", 10, False)]
-    n_samples = int(nums[("epl3", 10, False)].sum())
-    head.update(bound_ms(
-        n_samples * 2 * raw.element_size() + chips.numel() * 4 + n * 5 * 8
-        + 3 * 8 + n * 3 * 2 * 4,
-        n_samples * (OPS_PER_SAMPLE + OPS_PER_TAP * 3)))
+    head.update(bank_bound(raw, st.ptr, nums[("epl3", 10, False)], chips, 3,
+                           False, windows=True))
     res["main_shape"] = head
     # other numbers of CTAs per channel than the default
     flag = cb.new_fault(dev)
@@ -1071,7 +1110,8 @@ def solve_capture_check(dev: torch.device, rows: int = 8) -> dict:
     return res
 
 
-def vt_graph_vs_eager(first: FirstScan, n_ms: int = 200) -> dict:
+def vt_graph_vs_eager(first: FirstScan, n_ms: int = 200,
+                      path: str = "main_path") -> dict:
     """`n_ms` of vt_scan from the VT stage's start, run eagerly and
     replayed as CUDA graphs (a C/N0 window every 20 ms, the adaptive-R
     update at step 200, four refreshes of which two renew the atmosphere):
@@ -1100,7 +1140,7 @@ def vt_graph_vs_eager(first: FirstScan, n_ms: int = 200) -> dict:
     if differ or rec_e.keys() != rec_g.keys() or launched != 3 * n_ms:
         raise AssertionError(f"vt_scan replayed against eager: {res}")
     res["solve_capture"] = solve_capture_check(st_g.ptr.device)
-    evidence("vt_graph_vs_eager", **res)
+    evidence("vt_graph_vs_eager", path=path, **res)
     return res
 
 
@@ -1690,18 +1730,13 @@ def phase_time_segments(dev: torch.device, workdir: str, main: dict) -> dict:
     # B1 at this width: one 1000-block chunk from the segments' start
     raw, start, st0, chips, spec, nb = chunks.calls[0]
     out, _ = tc.track_chunk(raw, start, st0, chips, spec, nb)
-    n_out = sum(out[f].numel() * out[f].element_size() for f in out)
     b1 = dict(channels=int(st0.ptr.shape[0]), blocks=nb,
               cluster=tc.cluster_size(
                   int(st0.ptr.shape[0]),
                   torch.cuda.get_device_properties(dev).multi_processor_count),
               kernel_ms=timed_ms(lambda: tc.track_chunk(
                   raw, start, st0, chips, spec, nb), 3))
-    b1.update(bound_ms(
-        union_samples(st0.ptr, out["absolute_sample"][-1])
-        * raw.element_size() * 2 + chips.numel() * 4 + n_out,
-        int(out["num_sample"].sum()) * (OPS_PER_SAMPLE
-                                        + OPS_PER_TAP * len(spec.taps))))
+    b1.update(chunk_bound(st0, out, raw, chips, spec))
     del chunks, raw, resident, out, st, st0
     torch.cuda.empty_cache()
 
@@ -1774,41 +1809,67 @@ def phase_time_segments(dev: torch.device, workdir: str, main: dict) -> dict:
     return res
 
 
-def phase_cli(dev: torch.device, workdir: str, ephs: list) -> dict:
-    """The command line as a user runs it: a CLI_MS capture of the e2e
-    scenario synthesized on the card straight into a file, then
-    `python -m gps_sdr_tpu_torch.cli <file> --preset opensky --ct-ms
-    CLI_CT_ROWS --vt-ms CLI_VT_MS --no-plots --out <dir>` in a process of its
-    own.  Gates: exit code 0, the 8 PRNs in its acquisition table, ≥ 4
-    usable SVs, WLS and VT medians < 120 m as it prints them and from its
-    `.mat` files against the receiver's position, and every file of the
-    `.mat` set read back through io/matref.  The command prints its own
-    kernel launches."""
-    cfg = dataclasses.replace(cfg_e2e(), file=FileConfig(name="cli",
-                                                         skip_ms=0))
-    # what the command runs under: the preset's file and solution settings,
-    # the e2e front end (the same 58 MHz and IF as the preset's); the
-    # receiver sits at the preset's configured truth (102 m from the e2e
-    # scenario's position), so the medians the command prints are errors
-    ocfg = dataclasses.replace(opensky_config(), signal=cfg.signal)
-    usr = llh2xyz(np.asarray(ocfg.solu.truth_llh)).numpy()
+def synthesize_capture(dev: torch.device, path: str, cfg: ReceiverConfig,
+                       usr: np.ndarray, ephs: list, amp_scale: float,
+                       noise_std: float, dc=None) -> float:
+    """A CLI_MS capture of the e2e scenario's 8 SVs at the front end of
+    `cfg` (int8 or int16 by its data_precision), seen from `usr` from
+    CLI_TOW0 on, synthesized on the card straight into the file `path`.
+    With `dc` (I, Q) the front end's DC offset is added to the samples on
+    the card before they are quantized, as tests/test_urban_fullrate.py
+    adds it (the synthesizer has no DC argument, nor has the JAX
+    package's).  Returns the wall seconds."""
     gs = GeometrySignal(
-        cfg, [GeometrySV(prn=p, eph=e, amplitude=AMP_SCALE * a)
+        cfg, [GeometrySV(prn=p, eph=e, amplitude=amp_scale * a)
               for p, e, a in zip(PRNS, ephs, AMPS)],
         usr, CLI_TOW0, clk_bias_s=CLK_BIAS_S, clk_drift_sps=CLK_DRIFT_SPS,
         atmosphere=True, iono_alpha=cfg.cmn.iono_alpha,
         iono_beta=cfg.cmn.iono_beta, doy=cfg.cmn.day_of_year, device=dev)
-    path = os.path.join(workdir, "capture.bin")
     t0 = time.perf_counter()
-    out = np.memmap(path, dtype=np.int8, mode="w+",
+    dtype = np.int8 if cfg.file.data_precision == 1 else np.int16
+    out = np.memmap(path, dtype=dtype, mode="w+",
                     shape=(2 * CLI_MS * cfg.signal.samples_per_ms,))
-    gs.synthesize(CLI_MS, noise_std=NOISE_STD, seed=13, out=out)
+    if dc is None:
+        gs.synthesize(CLI_MS, noise_std=noise_std, seed=13, out=out)
+    else:
+        n = 2 * 1000 * cfg.signal.samples_per_ms      # values a second
+        for ms in range(0, CLI_MS, 1000):
+            iq = gs.generate_ms(ms, 1000, noise_std=noise_std, seed=13)
+            out[ms // 1000 * n:(ms // 1000 + 1) * n] = quantize_iq(
+                iq + complex(*dc), dtype)
     out.flush()
     del out
-    synth_s = time.perf_counter() - t0
-    res_dir = os.path.join(workdir, "out")
+    return time.perf_counter() - t0
+
+
+TABLE_HEAD = "PRN   SNR[dB]  Doppler[Hz]  FineDoppler[Hz]  CodeDelay[smp]"
+TABLE_ROW = re.compile(r"^\s*(\d+)\s+(-?[\d.]+)\s+(-?[\d.]+)\s+(-?[\d.]+)"
+                       r"\s+(\d+)$")
+
+
+def acquisition_rows(lines: list) -> list:
+    """The rows (PRN, SNR, Doppler, fine Doppler, code delay, as strings)
+    of the acquisition table the command prints in `lines`."""
+    rows = []
+    for line in lines[lines.index(TABLE_HEAD) + 1:]:
+        m = TABLE_ROW.match(line)
+        if not m:
+            break
+        rows.append(m.groups())
+    return rows
+
+
+def run_command(path: str, preset: str, res_dir: str, ocfg: ReceiverConfig,
+                usr: np.ndarray) -> dict:
+    """`python -m gps_sdr_tpu_torch.cli <path> --preset <preset> --ct-ms
+    CLI_CT_ROWS --vt-ms CLI_VT_MS --no-plots --out <res_dir>` in a process of
+    its own, `ocfg` the preset's configuration.  Gates: exit code 0, the 8
+    PRNs in its acquisition table, ≥ 4 usable SVs, WLS and VT medians
+    < 120 m as it prints them and from its `.mat` files against `usr`, every
+    file of the `.mat` set read back through io/matref at the preset's bytes
+    a sample, and the kernel launches it prints all above 0."""
     argv = [sys.executable, "-m", "gps_sdr_tpu_torch.cli", path, "--preset",
-            "opensky", "--ct-ms", str(CLI_CT_ROWS), "--vt-ms", str(CLI_VT_MS),
+            preset, "--ct-ms", str(CLI_CT_ROWS), "--vt-ms", str(CLI_VT_MS),
             "--no-plots", "--out", res_dir]
     t0 = time.perf_counter()
     r = subprocess.run(argv, capture_output=True, text=True, timeout=900,
@@ -1817,10 +1878,8 @@ def phase_cli(dev: torch.device, workdir: str, ephs: list) -> dict:
     if r.returncode != 0:
         raise AssertionError(f"the command exited {r.returncode}:\n"
                              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    lines = r.stdout.splitlines()
-    head = lines.index(
-        "PRN   SNR[dB]  Doppler[Hz]  FineDoppler[Hz]  CodeDelay[smp]")
-    acquired = [int(l.split()[0]) for l in lines[head + 1:head + 1 + len(PRNS)]]
+    rows = acquisition_rows(r.stdout.splitlines())
+    acquired = [int(row[0]) for row in rows]
     usable = re.search(r"usable SVs \(complete healthy ephemeris\): "
                        r"\[([\d, ]*)\]", r.stdout)
     usable = [int(p) for p in usable.group(1).split(",")] if usable else []
@@ -1839,10 +1898,11 @@ def phase_cli(dev: torch.device, workdir: str, ephs: list) -> dict:
     # the .mat set, read back through io/matref
     name, skip = ocfg.file.name, ocfg.file.skip_ms
     bps, S = ocfg.file.bytes_per_sample, ocfg.signal.samples_per_ms
+    tag = "10ms" if ocfg.track.ct_pdi_switch_ms else "1ms"
     mat = os.path.join(res_dir, "mat")
     want = sorted([f"nAcquired_{name}_{skip}.mat", f"eph_{name}.mat",
-                   f"sbf_{name}.mat", f"tckRstCT_10ms_{name}.mat",
-                   f"navSolCT_10ms_{name}.mat", f"tckRstVT_{name}_updated.mat",
+                   f"sbf_{name}.mat", f"tckRstCT_{tag}_{name}.mat",
+                   f"navSolCT_{tag}_{name}.mat", f"tckRstVT_{name}_updated.mat",
                    f"navSolVT_{name}_updated.mat"])
     if sorted(os.listdir(mat)) != want:
         raise AssertionError(f"the command wrote {sorted(os.listdir(mat))}, "
@@ -1851,10 +1911,10 @@ def phase_cli(dev: torch.device, workdir: str, ephs: list) -> dict:
     na = matref.load_nacquired(f(f"nAcquired_{name}_{skip}.mat"))
     eph = matref.load_eph(f(f"eph_{name}.mat"))
     nav1 = matref.load_sbf(f(f"sbf_{name}.mat"))["nav1"]
-    ct_rec, pdi = matref.load_tck_records(f(f"tckRstCT_10ms_{name}.mat"),
+    ct_rec, pdi = matref.load_tck_records(f(f"tckRstCT_{tag}_{name}.mat"),
                                           usable, bytes_per_sample=bps,
                                           samples_per_ms=S)
-    nav = matref.load_navsol(f(f"navSolCT_10ms_{name}.mat"))
+    nav = matref.load_navsol(f(f"navSolCT_{tag}_{name}.mat"))
     vt_trk, _ = matref.load_vt_records(f(f"tckRstVT_{name}_updated.mat"),
                                        usable, bytes_per_sample=bps)
     vt = matref.load_navsol_vt(f(f"navSolVT_{name}_updated.mat"))
@@ -1864,14 +1924,16 @@ def phase_cli(dev: torch.device, workdir: str, ephs: list) -> dict:
         command=" ".join(["python -m gps_sdr_tpu_torch.cli", "<capture>"]
                          + argv[4:-1] + ["<dir>"]),
         capture_ms=CLI_MS, capture_gb=os.path.getsize(path) / 1e9,
-        synth_to_file_s=synth_s, command_s=wall, rc=r.returncode,
-        acquired=acquired, usable_svs=usable,
+        command_s=wall, rc=r.returncode, acquired=acquired,
+        fine_doppler_hz=[float(row[3]) for row in rows],
+        snr_db=[float(row[1]) for row in rows], usable_svs=usable,
         printed_wls_median_m=float(printed["wls"].group(2)),
         printed_vt_median_m=float(printed["vt"].group(2)),
         wls_epochs=int(len(wls_err)), wls_median_err_m=float(
             np.median(wls_err)), vt_ms=int(vt_err.shape[0]),
         vt_median_err_m=float(np.median(vt_err)),
-        mat_files=want, ct_rows=int(ct_rec.corr.shape[0]),
+        mat_files=want, bytes_per_sample=bps,
+        ct_rows=int(ct_rec.corr.shape[0]),
         ct_pdi_ms=sorted(set(int(x) for x in np.unique(pdi))),
         eph_decoded=sorted(int(p) for p, e in eph.items() if e.tow),
         nacquired_sv=[int(x) for x in na["sv"]],
@@ -1888,8 +1950,212 @@ def phase_cli(dev: torch.device, workdir: str, ephs: list) -> dict:
             and res["vt_record_rows"] == CLI_VT_MS
             and res["ct_rows"] == CLI_CT_ROWS and min(launches) > 0):
         raise AssertionError(f"the command's results: {res}")
+    return res
+
+
+def phase_cli(dev: torch.device, workdir: str, ephs: list) -> dict:
+    """The command line as a user runs it: a CLI_MS capture of the e2e
+    scenario synthesized on the card straight into a file, then
+    `python -m gps_sdr_tpu_torch.cli <file> --preset opensky ...` in a
+    process of its own, held by `run_command`'s gates."""
+    cfg = dataclasses.replace(cfg_e2e(), file=FileConfig(name="cli",
+                                                         skip_ms=0))
+    # what the command runs under: the preset's file and solution settings,
+    # the e2e front end (the same 58 MHz and IF as the preset's); the
+    # receiver sits at the preset's configured truth (102 m from the e2e
+    # scenario's position), so the medians the command prints are errors
+    ocfg = dataclasses.replace(opensky_config(), signal=cfg.signal)
+    usr = llh2xyz(np.asarray(ocfg.solu.truth_llh)).numpy()
+    path = os.path.join(workdir, "capture.bin")
+    synth_s = synthesize_capture(dev, path, cfg, usr, ephs, AMP_SCALE,
+                                 NOISE_STD)
+    res_dir = os.path.join(workdir, "out")
+    res = dict(synth_to_file_s=synth_s,
+               **run_command(path, "opensky", res_dir, ocfg, usr))
     evidence("cli", **res)
     return res, dict(path=path, artifacts=os.path.join(res_dir, "artifacts"))
+
+
+def _urban_kernels(dev: torch.device, ucfg: ReceiverConfig, src,
+                   art: str) -> dict:
+    """The three kernels at the urban shape (26 000 samples a ms, int16, DC
+    removal on) on the command's capture, from its acquisition: each
+    against its plain version on the same inputs on the card, every field
+    bit for bit, with its time, the plain version's and its bound.  B1 over
+    a 1000-block E/P/L chunk and a 300-block 25-tap chunk (records and end
+    state); from the state after the 1000 blocks B3 over 10 ms windows at 3
+    and 25 taps (`_windows_case`: also against B2 over the same samples),
+    and B2 over one 1 ms block at 3 taps (`_bank_case`: split, so the DC
+    kernel runs first, and on one CTA per channel)."""
+    fs, S = ucfg.signal.fs, ucfg.signal.samples_per_ms
+    name, skip = ucfg.file.name, ucfg.file.skip_ms
+    acq = np.load(os.path.join(art, f"acquired_{name}_{skip}.npz"))
+    prns = [int(p) for p in acq["sv"]]
+    chips = chip_tables(prns, dev)
+    stager = DeviceStager(dev)
+    state = init_track_state(ucfg, acq["code_delay"], acq["fine_freq_hz"],
+                             dev)
+    res = dict(channels=len(prns))
+    for kind, n_steps in (("epl", 1000), ("pos_multicorr", 300)):
+        spec = getattr(TrackParams, kind)(ucfg).chunk_spec(ucfg)
+        if not spec.remove_dc:
+            raise AssertionError("int16 tracking without DC removal")
+        start = int(state.ptr.min())
+        raw = stager.stage(src.read_iq_values(
+            start, int(state.ptr.max()) - start
+            + spec.chunk_samples(n_steps)))
+        out, end = tc.track_chunk(raw, start, state, chips, spec, n_steps)
+        ref, ref_end = tc.track_chunk_reference(raw, start, state, chips,
+                                                spec, n_steps)
+        tc.raise_on_fault(out)
+        tc.raise_on_fault(ref)
+        m = dict(blocks=n_steps, taps=len(spec.taps),
+                 differing=differing_fields(out, ref) + [
+                     f"state.{f}" for f in _end_state_differs(end, ref_end)],
+                 max_abs_err=float((out["corr"] - ref["corr"]).abs().max()),
+                 kernel_ms=timed_ms(lambda: tc.track_chunk(
+                     raw, start, state, chips, spec, n_steps), 3),
+                 plain_ms=timed_ms(lambda: tc.track_chunk_reference(
+                     raw, start, state, chips, spec, n_steps), 1),
+                 **chunk_bound(state, out, raw, chips, spec))
+        if m["differing"]:
+            raise AssertionError(f"track_chunk at the urban shape ({kind}) "
+                                 f"differs from plain: {m}")
+        res[f"track_chunk_{kind}"] = m
+        if kind == "epl":
+            st = end
+    i64 = torch.int64
+    start = int(st.ptr.min()) - S
+    raw = stager.stage(src.read_iq_values(start, 14 * S))
+    jitter = torch.tensor([(i % 5) - 2 for i in range(len(prns))],
+                          dtype=i64, device=dev)
+
+    def locked(pdi):
+        """The tracked state's NCO words, blocks of `pdi` ms ± 2 samples."""
+        return dict(
+            ptr=st.ptr, rem_chip=st.rem_chip, code_freq=st.code_freq,
+            phase_fp=st.phase_fp.to(i64),
+            carr_fp=torch.round(st.carr_freq / fs * tc.Q32).to(i64),
+            num=torch.ceil((1023.0 * pdi - st.rem_chip)
+                           / (st.code_freq / fs)).to(i64) + jitter)
+
+    def blk_of(pdi):
+        return -(-(pdi * S + 256) // 128) * 128
+
+    # the bounds' scale: the tracked state's prompt magnitude (the gate here
+    # is bit for bit)
+    nco, epl = locked(1), VTParams().taps
+    p, _ = cb.correlator_bank_reference(
+        raw, nco["ptr"] - start, *(nco[k] for k in (
+            "rem_chip", "code_freq", "phase_fp", "carr_fp", "num")), chips,
+        cb.tap_offsets_fp(epl, dev), fs, blk_of(1))
+    scale = float(torch.hypot(p[:, 1, 0], p[:, 1, 1]).mean())
+    for label, taps in (("epl3", TrackParams.epl(ucfg).taps),
+                        ("ct25", TrackParams.pos_multicorr(ucfg).taps)):
+        nco, blk = locked(10), blk_of(10)
+        m = _windows_case(raw, start, nco, chips, taps, blk, True, scale, fs)
+        args = m.pop("args")
+        m.pop("cut"), m.pop("out")
+        plan = cb.WindowsPlan(chips, args[7], fs, blk, True)
+        call = tuple(t.contiguous() for t in args[:6])
+        m.update(taps=len(taps), blk=blk,
+                 n_split=cb.default_split(len(prns), blk),
+                 kernel_ms=timed_graph_ms(lambda: plan(*call), 10),
+                 plain_ms=timed_ms(
+                     lambda: cb.correlator_bank_windows_reference(*args), 3),
+                 **bank_bound(raw, nco["ptr"], nco["num"], chips, len(taps),
+                              True, windows=True))
+        if not m["bitwise"]:
+            raise AssertionError(f"correlator_bank_windows at the urban "
+                                 f"shape ({label}): {m}")
+        res[f"correlator_bank_windows_{label}_10ms"] = m
+    nco, blk = locked(1), blk_of(1)
+    m = _bank_case(raw, start, nco, chips, epl, blk, True, scale, fs)
+    args, plan, words = m.pop("args"), m.pop("plan"), m.pop("words")
+    one = cb.BankPlan(raw, chips, args[8], fs, blk, True, n_split=1)
+    m.update(taps=3, blk=blk, n_split=cb.default_split(len(prns), blk),
+             kernel_ms=timed_graph_ms(lambda: plan(*words), 10),
+             kernel_1cta_ms=timed_graph_ms(lambda: one(*words), 10),
+             plain_ms=timed_ms(
+                 lambda: cb.correlator_bank_reference(*args), 3),
+             **bank_bound(raw, nco["ptr"], nco["num"], chips, 3, True))
+    if not m["bitwise"]:
+        raise AssertionError(f"correlator_bank at the urban shape: {m}")
+    res["correlator_bank_epl3_1ms"] = m
+    return res
+
+
+def phase_urban(dev: torch.device, workdir: str, ephs: list,
+                smi: str) -> dict:
+    """The Urban front end end to end: a CLI_MS capture of the e2e
+    scenario's 8 SVs at the `urban` preset's front end (26 MHz, int16, zero
+    IF, so the geometry's Dopplers come with both signs) at phase 6's C/N0
+    (amplitudes ×√(58/26) for the lower rate, amplitudes and noise
+    ×URBAN_GAIN for the int16 range), the DC offset URBAN_DC added to every
+    pair, the receiver at the preset's configured truth, synthesized on the
+    card into a file; then `python -m gps_sdr_tpu_torch.cli <file> --preset
+    urban ...` in a process of its own, held by `run_command`'s gates and
+    negative fine Dopplers among the acquired.  Then, in this process, the
+    three kernels at this shape against their plain versions
+    (`_urban_kernels`), the capture uploaded to the card as int16 and read
+    back, and the VT stage run again from the command's CT
+    artifacts with FirstScan in place: its records against the command's,
+    and 200 ms of its vt_scan (DC removal on) eager against replayed
+    (`vt_graph_vs_eager`)."""
+    ucfg = urban_config()
+    usr = llh2xyz(np.asarray(ucfg.solu.truth_llh)).numpy()
+    path = os.path.join(workdir, "capture.bin")
+    synth_s = synthesize_capture(
+        dev, path, ucfg, usr, ephs,
+        AMP_SCALE * math.sqrt(FS / ucfg.signal.fs) * URBAN_GAIN,
+        NOISE_STD * URBAN_GAIN, URBAN_DC)
+    res_dir = os.path.join(workdir, "out")
+    res = dict(synth_to_file_s=synth_s, dc_offset=list(URBAN_DC),
+               **run_command(path, "urban", res_dir, ucfg, usr))
+    if min(res["fine_doppler_hz"]) >= 0 or max(res["fine_doppler_hz"]) <= 0:
+        raise AssertionError(f"zero IF: fine Dopplers of one sign only: "
+                             f"{res['fine_doppler_hz']}")
+    art = os.path.join(res_dir, "artifacts")
+    src = IFSampleSource(path, ucfg.file)
+    res["kernels"] = _urban_kernels(dev, ucfg, src, art)
+    # the capture held on the card as int16 (io/ifdata.upload_capture, what
+    # the time-segmented eph stage reads): rows equal to the file's
+    t0 = time.perf_counter()
+    resident = upload_capture(src, dev)
+    upload_s = time.perf_counter() - t0
+    S, n = ucfg.signal.samples_per_ms, src.n_samples
+    res["upload"] = dict(
+        s=upload_s, dtype=str(resident.dtype), rows=int(resident.shape[0]),
+        rows_equal=all(torch.equal(resident[a:a + S].cpu(), torch.from_numpy(
+            src.read_iq_values(a, S))) for a in (0, n // 2 + 7, n - S)))
+    del resident
+    if not (res["upload"]["rows_equal"] and res["upload"]["rows"] == n
+            and res["upload"]["dtype"] == "torch.int16"):
+        raise AssertionError(f"the int16 capture on the card: {res['upload']}")
+
+    # the VT stage again in this process, from a copy of the command's
+    # artifacts without its VT result
+    rx_dir = os.path.join(workdir, "rx")
+    shutil.copytree(art, rx_dir,
+                    ignore=shutil.ignore_patterns("navvt2_*"))
+    rx = Receiver(ucfg, src, artifact_dir=rx_dir, device=dev)
+    first = tvt.vt_scan = FirstScan()
+    try:
+        trk, sol = rx.vt_position(n_ms=CLI_VT_MS, ct_n_ms=CLI_CT_ROWS)
+    finally:
+        tvt.vt_scan = first.scan
+    if not first.args[7].remove_dc:
+        raise AssertionError("the int16 VT stage runs without DC removal")
+    cmd_trk, cmd_sol = Receiver(ucfg, src, artifact_dir=art,
+                                device=dev).vt_position(
+        n_ms=CLI_VT_MS, ct_n_ms=CLI_CT_ROWS)
+    res["vt_again_equals_command"] = bool(
+        np.array_equal(sol.usr_pos, cmd_sol.usr_pos)
+        and np.array_equal(trk.corr, cmd_trk.corr))
+    res["vt_graph_vs_eager"] = vt_graph_vs_eager(first, path="urban")
+    res["device"] = smi
+    evidence("urban", **res)
+    return res
 
 
 def phase_multi_process(workdir: str, cli_files: dict) -> dict:
@@ -1982,11 +2248,9 @@ def phase_cli_world(workdir: str, cli_files: dict, cli_res: dict) -> dict:
         raise AssertionError(f"the command's world exited {r.returncode}:\n"
                              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
     lines = r.stdout.splitlines()
-    head = "PRN   SNR[dB]  Doppler[Hz]  FineDoppler[Hz]  CodeDelay[smp]"
     once = {k: sum(l.startswith(k) for l in lines)
-            for k in (head, "usable SVs", "WLS: ", "VT/EKF: ")}
-    at = lines.index(head)
-    acquired = [int(l.split()[0]) for l in lines[at + 1:at + 1 + len(PRNS)]]
+            for k in (TABLE_HEAD, "usable SVs", "WLS: ", "VT/EKF: ")}
+    acquired = [int(row[0]) for row in acquisition_rows(lines)]
     usable = re.search(r"usable SVs \(complete healthy ephemeris\): "
                        r"\[([\d, ]*)\]", r.stdout)
     usable = [int(p) for p in usable.group(1).split(",")] if usable else []
@@ -2089,15 +2353,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device_and_build()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ephs = scenario.visible_constellation(len(PRNS), truth_llh=TRUTH_LLH)
     kvp, shared = phase_kernel_vs_plain(dev)
     bank = phase_bank_vs_plain(dev, shared)
     win = phase_windows_vs_plain(dev, shared)
     phase_both_trackers(dev, shared)
     del shared
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     workdirs = [tempfile.mkdtemp(prefix="chip_smoke_",
                                  dir=os.path.join(ROOT, "build"))
-                for _ in range(8)]
+                for _ in range(9)]
     try:
         main_res, main_out = phase_main_path(dev, workdirs[0],
                                              "--profile-vt" in sys.argv[1:])
@@ -2108,14 +2373,15 @@ def main() -> int:
         # the 4.76 GB capture goes before the command line's is made
         del main_out
         gc.collect()
-        cli_res, cli_files = phase_cli(dev, workdirs[4],
-                                       scenario.visible_constellation(
-                                           len(PRNS), truth_llh=TRUTH_LLH))
+        cli_res, cli_files = phase_cli(dev, workdirs[4], ephs)
         # the ranks share the card: the parent's cached blocks go first
         gc.collect()
         torch.cuda.empty_cache()
         mp_res = phase_multi_process(workdirs[5], cli_files)
         cw_res = phase_cli_world(workdirs[6], cli_files, cli_res)
+        # phase 6's 5.45 GB capture goes before the urban one is made
+        shutil.rmtree(workdirs[4], ignore_errors=True)
+        urban_res = phase_urban(dev, workdirs[8], ephs, smi)
         res_res = phase_results(dev, workdirs[7], smi)
     finally:
         for d in workdirs:
@@ -2135,9 +2401,17 @@ def main() -> int:
     # phase 4; `launches_by_path` adds the time-segmented eph stage, the
     # command line (counted by the command's own process) and each rank of
     # phase 7 (counted by the rank's process: its Receiver, then its ingest),
-    # each rank of the command's world (phase 8, printed by rank 0) and the
-    # results record (phase 9, counted by its process)
+    # each rank of the command's world (phase 8, printed by rank 0), the
+    # results record (phase 9, counted by its process) and the command under
+    # the urban preset (phase 10, counted by its process); `urban_shape` is
+    # the kernel against its plain version at 26 MHz int16 with DC removal
     cli_launches = cli_res["launches"]
+    urban_launches = urban_res["launches"]
+    uk = urban_res["kernels"]
+
+    def urban_shape(m):
+        return {k: m[k] for k in ("max_abs_err", "kernel_ms", "plain_ms",
+                                  "bound_ms", "bound_by")}
 
     def ranks_of(name):
         return [r["launches"][name] + r["ingest_launches"][name]
@@ -2163,7 +2437,11 @@ def main() -> int:
             "cli": cli_launches["track_chunk"],
             "multi_process_ranks": ranks_of("track_chunk"),
             "cli_world_ranks": world_of("track_chunk"),
-            "results": res_res["launches"]["track_chunk"]},
+            "results": res_res["launches"]["track_chunk"],
+            "urban": urban_launches["track_chunk"]},
+        "urban_shape": {"epl_1000": urban_shape(uk["track_chunk_epl"]),
+                        "taps25_300": urban_shape(
+                            uk["track_chunk_pos_multicorr"])},
         "time_segments_64ch": seg_res["track_chunk_64"]}, {
         "name": "correlator_bank", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/corr_bank.cu",
@@ -2177,7 +2455,10 @@ def main() -> int:
             "cli": cli_launches["correlator_bank"],
             "multi_process_ranks": ranks_of("correlator_bank"),
             "cli_world_ranks": world_of("correlator_bank"),
-            "results": res_res["launches"]["correlator_bank"]}}, {
+            "results": res_res["launches"]["correlator_bank"],
+            "urban": urban_launches["correlator_bank"]},
+        "urban_shape": {"epl3_1ms_dc": urban_shape(
+            uk["correlator_bank_epl3_1ms"])}}, {
         "name": "correlator_bank_windows", "route": "cuda",
         "source": "gps_sdr_tpu_torch/csrc/corr_bank.cu",
         "replaces": "gps_sdr_tpu/ops/pallas_correlator.py:122",
@@ -2190,7 +2471,13 @@ def main() -> int:
             "cli": cli_launches["correlator_bank_windows"],
             "multi_process_ranks": ranks_of("correlator_bank_windows"),
             "cli_world_ranks": world_of("correlator_bank_windows"),
-            "results": res_res["launches"]["correlator_bank_windows"]}}]}),
+            "results": res_res["launches"]["correlator_bank_windows"],
+            "urban": urban_launches["correlator_bank_windows"]},
+        "urban_shape": {
+            "epl3_10ms_dc": urban_shape(
+                uk["correlator_bank_windows_epl3_10ms"]),
+            "ct25_10ms_dc": urban_shape(
+                uk["correlator_bank_windows_ct25_10ms"])}}]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

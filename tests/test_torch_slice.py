@@ -118,13 +118,14 @@ def test_acquisition_identical(runs):
     np.testing.assert_array_equal(t.fine_freq_hz, j.fine_freq_hz)
 
 
-def _assert_chains_agree(j, t):
+def _assert_chains_agree(j, t, min_split=200):
     """Integer block chain exact up to the first trajectory split (the
-    first row with carrier frequencies > 1e-3 Hz apart), within one sample
-    after it; prompt signs (the navigation bits) identical throughout."""
+    first row with carrier frequencies > 1e-3 Hz apart, no earlier than
+    `min_split`), within one sample after it; prompt signs (the navigation
+    bits) identical throughout."""
     dcarr = np.abs(t.carr_freq - j.carr_freq) > 1e-3
     split = int(np.argmax(dcarr.any(axis=1))) if dcarr.any() else len(dcarr)
-    assert split >= 200, split
+    assert split >= min_split, split
     np.testing.assert_array_equal(t.num_sample[:split], j.num_sample[:split])
     np.testing.assert_array_equal(t.absolute_sample[:split],
                                   j.absolute_sample[:split])
