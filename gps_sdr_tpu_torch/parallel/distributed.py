@@ -2,9 +2,10 @@
 
 The counterpart of the JAX package's `gps_sdr_tpu/parallel/distributed.py`:
 `launch` spawns N worker processes that join one `torch.distributed`
-world (gloo, a free TCP port on localhost), builds each rank's mesh
-(`parallel/mesh.make_mesh`) and runs the requested legs on it; each leg
-checks what its rank ends with and returns a small dict.
+world (gloo, meeting in a file store under the launch's `work_dir`),
+builds each rank's mesh (`parallel/mesh.make_mesh`) and runs the requested
+legs on it; each leg checks what its rank ends with and returns a small
+dict.
 
 - **track**: `run_tracking(mesh=…)` on both routes (pdi 1 through
   `track_chunk`, pdi 10 through `track_scan`), 8 channels of random
@@ -43,7 +44,6 @@ import json
 import os
 import pickle
 import shutil
-import socket
 import subprocess
 import sys
 import tempfile
@@ -766,19 +766,14 @@ def run_legs(job_path: str, out_path: str) -> int:
 # launcher
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def launch(legs: Sequence[str] = ("track", "epoch"), n_processes: int = 2,
            device=None, timeout_s: int = 900, work_dir: Optional[str] = None,
            receiver: Optional[dict] = None, ingest: Optional[dict] = None,
            scaling: Optional[dict] = None) -> Dict[int, dict]:
-    """Spawn `n_processes` workers in one gloo world (a free port on
-    localhost), run `legs` on every rank and return {rank: result dict}.
-    Raises on any worker's failure or time-out (every worker is stopped).
+    """Spawn `n_processes` workers in one gloo world (a file store in
+    `work_dir`, so that worlds launched at once cannot meet), run `legs` on
+    every rank and return {rank: result dict}.  Raises on any worker's
+    failure or time-out (every worker is stopped).
 
     `device`: each rank's device (None: its card, `mesh.rank_device`;
     "cpu" for the CPU).  `receiver`: the receiver leg's `cfg`, `capture`,
@@ -804,7 +799,11 @@ def launch(legs: Sequence[str] = ("track", "epoch"), n_processes: int = 2,
     with open(job_path, "wb") as f:
         pickle.dump(dict(legs=list(legs), device=device, receiver=receiver,
                          ingest=ingest, scaling=scaling, out_dir=work_dir), f)
-    port = _free_port()
+    # the ranks meet in a file store of this launch's own: a TCP port
+    # found free here and bound by rank 0 later could be taken in between
+    store = os.path.join(work_dir, "store")
+    if os.path.exists(store):
+        os.remove(store)    # a crashed launch's; a store needs a new file
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep
@@ -816,7 +815,7 @@ def launch(legs: Sequence[str] = ("track", "epoch"), n_processes: int = 2,
         # the world first, then the port
         boot = ("import datetime, sys, torch.distributed as dist;"
                 "dist.init_process_group('gloo', "
-                f"init_method='tcp://localhost:{port}', rank={rank}, "
+                f"init_method={'file://' + store!r}, rank={rank}, "
                 f"world_size={n_processes}, "
                 f"timeout=datetime.timedelta(seconds={timeout_s}));"
                 "from gps_sdr_tpu_torch.parallel import distributed as d;"

@@ -221,8 +221,12 @@ class Receiver:
                             i_late=int(z["i_late"]))
 
     # ---------- stages ----------
-    def acquisition(self) -> AcquisitionResult:
-        """Stage 1 (SDR_main.m:22): FFT parallel code-phase search."""
+    def acquisition(self, power_fn=None) -> AcquisitionResult:
+        """Stage 1 (SDR_main.m:22): FFT parallel code-phase search.
+
+        `power_fn(blocks, carriers, code_fft)` overrides the grid
+        computation (`run_acquisition`); without one a world's mesh shards
+        it over PRNs."""
         if self._acq is not None:
             return self._acq
         stem = f"acquired_{self.cfg.file.name}_{self.cfg.file.skip_ms}.npz"
@@ -232,8 +236,7 @@ class Receiver:
                 sv=z["sv"], snr_db=z["snr_db"], doppler_hz=z["doppler_hz"],
                 code_delay=z["code_delay"], fine_freq_hz=z["fine_freq_hz"])
         else:
-            power_fn = None
-            if self.mesh is not None:
+            if power_fn is None and self.mesh is not None:
                 from gps_sdr_tpu_torch.parallel.acquisition import (
                     sharded_acquisition_power)
                 power_fn = sharded_acquisition_power(self.mesh)

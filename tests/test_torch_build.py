@@ -49,7 +49,8 @@ def test_concurrent_cold_builds_compile_each_source_once(tmp_path, n_procs,
                                                          names):
     home, count = _stub_home(tmp_path)
     build = tmp_path / "build"
-    env = dict(os.environ, CUDA_HOME=str(home), PYTHONPATH=ROOT)
+    env = dict(os.environ, CUDA_HOME=str(home), PYTHONPATH=ROOT,
+               OMP_NUM_THREADS="2")
     procs = [subprocess.Popen(
         [sys.executable, "-c", _BUILD, str(build), ",".join(names)], env=env,
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -73,7 +74,8 @@ def test_warm_build_runs_no_compiler(tmp_path):
     """A library of the same sources already in the build directory is
     loaded as it is: the compiler does not run again."""
     home, count = _stub_home(tmp_path)
-    env = dict(os.environ, CUDA_HOME=str(home), PYTHONPATH=ROOT)
+    env = dict(os.environ, CUDA_HOME=str(home), PYTHONPATH=ROOT,
+               OMP_NUM_THREADS="2")
     for _ in range(2):
         r = subprocess.run([sys.executable, "-c", _BUILD,
                             str(tmp_path / "build"), "track_chunk"],

@@ -41,7 +41,8 @@ from gps_sdr_tpu_torch.io.synthetic import GeometrySignal, GeometrySV
 from gps_sdr_tpu_torch.pipeline import Receiver
 import scenario as sc
 
-torch.set_num_threads(2)
+THREADS = 2
+torch.set_num_threads(THREADS)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FS, F_IF = 2.5e6, 0.6e6
@@ -110,7 +111,7 @@ def test_cli_defaults_to_the_card(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "gps_sdr_tpu_torch.cli", str(cap), "--fs",
          "2.5e6", "--out", str(tmp_path / "out")], capture_output=True,
-        text=True, timeout=300, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+        text=True, timeout=300, cwd=ROOT, env=_env())
     assert r.returncode != 0 and 'device="cpu"' in r.stderr, r.stderr
     assert not (tmp_path / "out" / "artifacts").exists() or not os.listdir(
         tmp_path / "out" / "artifacts")
@@ -144,11 +145,38 @@ def _argv(capture, out):
             "--vt-ms", str(VT_MS), "--device", "cpu", "--out", out]
 
 
+def _env():
+    """The command's environment: this checkout on the path, and its
+    threads bounded as this process's are (the suite runs beside it)."""
+    return dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS=str(THREADS))
+
+
 def _run(argv):
     return subprocess.run(
         [sys.executable, "-m", "gps_sdr_tpu_torch.cli"] + argv,
-        capture_output=True, text=True, timeout=600, cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=ROOT))
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env=_env())
+
+
+def test_command_runs_on_bounded_threads(monkeypatch):
+    """The environment `_run` gives the command bounds its threads: torch
+    and OpenMP in a child started with it use THREADS, not every core
+    (unbounded, the command's pool spins against the suite's workers)."""
+    seen = {}
+
+    def record(cmd, **kw):
+        seen.update(kw)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(subprocess, "run", record)
+    _run(["capture.bin"])
+    monkeypatch.undo()
+    r = subprocess.run(
+        [sys.executable, "-c", "import torch; print(torch.get_num_threads())"],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env=seen["env"])
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout) == THREADS
+    assert seen["env"]["OMP_NUM_THREADS"] == str(THREADS)
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,8 @@ decode-stage artifacts.
 
 import os
 import shutil
+import socket
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -423,3 +425,43 @@ def test_cuda_two_ranks_vt_chunk(tmp_path):
     for rank, r in res.items():
         assert r["device"].startswith("cuda"), r
         assert r["vt"]["ok"] and r["vt"]["bit_equal"], (rank, r["vt"])
+
+
+def _one_port_socket():
+    """A `socket.socket` whose binds to port 0 all get the first port so
+    handed out, and which counts them: the race of a port found free and
+    bound later, at its worst (two launchers handed the same port)."""
+    class OnePort(socket.socket):
+        port, probes = None, 0
+
+        def bind(self, address):
+            host, port = address[0], address[1]
+            if port == 0:
+                OnePort.probes += 1
+                port = OnePort.port or 0
+            super().bind((host, port) + tuple(address[2:]))
+            OnePort.port = OnePort.port or self.getsockname()[1]
+    return OnePort
+
+
+def test_launches_at_once_form_their_own_worlds(tmp_path, monkeypatch):
+    """Two launches started together, as the suite's worlds run beside
+    each other under xdist, with every free-port probe in this process
+    handed the same port: each forms its own world (the ranks meet in a
+    file store under its `work_dir`, no port is probed), and both end
+    correct."""
+    one_port = _one_port_socket()
+    monkeypatch.setattr(socket, "socket", one_port)
+    worlds = (2, 3)
+    with ThreadPoolExecutor(len(worlds)) as ex:
+        futures = [ex.submit(
+            tdist.launch, legs=("track", "epoch"), n_processes=n,
+            device="cpu", timeout_s=120, work_dir=str(tmp_path / f"w{n}"))
+            for n in worlds]
+        results = [f.result() for f in futures]
+    assert one_port.probes == 0
+    for n, res in zip(worlds, results):
+        assert sorted(res) == list(range(n))
+        for rank, r in res.items():
+            assert (r["rank"], r["world"]) == (rank, n)
+            assert r["track"]["ok"] and r["epoch"]["ok"], (n, rank, r)
