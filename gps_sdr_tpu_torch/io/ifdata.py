@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from gps_sdr_tpu_torch.config import FileConfig
+from gps_sdr_tpu_torch.utils.spans import span
 
 
 class IFSampleSource:
@@ -121,7 +122,8 @@ class PinnedRing:
         `sent` once its copy to the device is queued."""
         i = self._next
         if self._events[i] is not None:
-            self._events[i].synchronize()
+            with span("io.ring_wait"):
+                self._events[i].synchronize()
         n = int(np.prod(shape))
         buf = self._bufs[i]
         if buf is None or buf.dtype != dtype or buf.numel() < n:
@@ -173,29 +175,32 @@ def upload_capture(source: IFSampleSource, device) -> torch.Tensor:
 class ChunkPrefetcher:
     """Overlap the next chunk's host read with the device's work on the
     current one.  `fetch` serves any window contained in the pending
-    prefetch by slicing; a miss reads directly."""
+    prefetch by slicing; a miss reads directly.  The span `io.fetch` is
+    the caller's wait, `io.read` each read (on the prefetch thread, or
+    inside `io.fetch` on a miss)."""
 
     def __init__(self, read_fn):
-        self._read = read_fn
+        self._read_fn = read_fn
         self._pool = ThreadPoolExecutor(1)
         self._pending = None       # (start, n, future)
-        self.hits = 0
-        self.misses = 0
+
+    def _read(self, start: int, n: int) -> np.ndarray:
+        with span("io.read", n):
+            return self._read_fn(start, n)
 
     def prefetch(self, start: int, n: int) -> None:
         self._pending = (start, n, self._pool.submit(self._read, start, n))
 
     def fetch(self, start: int, n: int) -> np.ndarray:
-        if self._pending is not None:
-            p_start, p_n, fut = self._pending
-            self._pending = None
-            arr = fut.result()
-            if p_start <= start and start + n <= p_start + p_n:
-                self.hits += 1
-                off = start - p_start
-                return arr[off:off + n]
-        self.misses += 1
-        return self._read(start, n)
+        with span("io.fetch", n):
+            if self._pending is not None:
+                p_start, p_n, fut = self._pending
+                self._pending = None
+                arr = fut.result()
+                if p_start <= start and start + n <= p_start + p_n:
+                    off = start - p_start
+                    return arr[off:off + n]
+            return self._read(start, n)
 
     def close(self) -> None:
         if self._pending is not None:
@@ -217,14 +222,15 @@ class DeviceStager:
         self._ring = PinnedRing(self.device, slack=1.25)
 
     def stage(self, values: np.ndarray) -> torch.Tensor:
-        host = torch.from_numpy(np.ascontiguousarray(values))
-        if self.device.type != "cuda":
-            return host.to(self.device)
-        pinned = self._ring.take(host.shape, host.dtype)
-        pinned.copy_(host)
-        out = pinned.to(self.device, non_blocking=True)
-        self._ring.sent()
-        return out
+        with span("io.stage", values.nbytes):
+            host = torch.from_numpy(np.ascontiguousarray(values))
+            if self.device.type != "cuda":
+                return host.to(self.device)
+            pinned = self._ring.take(host.shape, host.dtype)
+            pinned.copy_(host)
+            out = pinned.to(self.device, non_blocking=True)
+            self._ring.sent()
+            return out
 
 
 def write_if_file(path: str, iq: np.ndarray, file_cfg: FileConfig) -> None:

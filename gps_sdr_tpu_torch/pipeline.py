@@ -14,6 +14,7 @@ only the pickles it wrote itself.
 
 from __future__ import annotations
 
+import functools
 import glob
 import hashlib
 import os
@@ -43,6 +44,7 @@ from gps_sdr_tpu_torch.tracking import (_REC_FIELDS, TrackParams,
                                         run_tracking, state_from_records)
 from gps_sdr_tpu_torch.utils.device import resolve_device
 from gps_sdr_tpu_torch.utils.metrics import cn0_series
+from gps_sdr_tpu_torch.utils.spans import span
 
 # written ahead of every pickle the Receiver saves; a pickle without it was
 # not written by this package and is not unpickled
@@ -82,6 +84,17 @@ def _pickle_writer(data: bytes) -> str:
     except ValueError:
         pass
     return "an unknown writer"
+
+
+def _stage(fn):
+    """A public stage of the Receiver, timed as the span `stage.<name>`."""
+    name = "stage." + fn.__name__
+
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        with span(name):
+            return fn(*args, **kwargs)
+    return timed
 
 
 def _atomic_write(path: str, write) -> None:
@@ -180,9 +193,10 @@ class Receiver:
 
     def _write(self, stem: str, write) -> None:
         if self.dir:
-            if self._writer():
-                _atomic_write(self._path(stem), write)
-            self._written()
+            with span("stage.save"):
+                if self._writer():
+                    _atomic_write(self._path(stem), write)
+                self._written()
 
     def _save_npz(self, stem: str, **arrays) -> None:
         self._write(stem, lambda f: np.savez(f, **arrays))
@@ -195,7 +209,7 @@ class Receiver:
 
     def _load_pickle(self, stem: str):
         path = self._path(stem)
-        with open(path, "rb") as f:
+        with span("stage.load"), open(path, "rb") as f:
             data = f.read()
         if not data.startswith(PICKLE_TAG):
             writer = _pickle_writer(data)
@@ -214,13 +228,15 @@ class Receiver:
                        **{f: getattr(rec, f) for f in _REC_FIELDS})
 
     def _load_records(self, stem: str) -> TrackRecords:
-        z = np.load(self._path(stem))
-        return TrackRecords(**{f: z[f] for f in _REC_FIELDS},
-                            i_early=int(z["i_early"]),
-                            i_prompt=int(z["i_prompt"]),
-                            i_late=int(z["i_late"]))
+        with span("stage.load"):
+            z = np.load(self._path(stem))
+            return TrackRecords(**{f: z[f] for f in _REC_FIELDS},
+                                i_early=int(z["i_early"]),
+                                i_prompt=int(z["i_prompt"]),
+                                i_late=int(z["i_late"]))
 
     # ---------- stages ----------
+    @_stage
     def acquisition(self, power_fn=None) -> AcquisitionResult:
         """Stage 1 (SDR_main.m:22): FFT parallel code-phase search.
 
@@ -231,10 +247,12 @@ class Receiver:
             return self._acq
         stem = f"acquired_{self.cfg.file.name}_{self.cfg.file.skip_ms}.npz"
         if self._have(stem):
-            z = np.load(self._path(stem))
-            self._acq = AcquisitionResult(
-                sv=z["sv"], snr_db=z["snr_db"], doppler_hz=z["doppler_hz"],
-                code_delay=z["code_delay"], fine_freq_hz=z["fine_freq_hz"])
+            with span("stage.load"):
+                z = np.load(self._path(stem))
+                self._acq = AcquisitionResult(
+                    sv=z["sv"], snr_db=z["snr_db"],
+                    doppler_hz=z["doppler_hz"], code_delay=z["code_delay"],
+                    fine_freq_hz=z["fine_freq_hz"])
         else:
             if power_fn is None and self.mesh is not None:
                 from gps_sdr_tpu_torch.parallel.acquisition import (
@@ -248,6 +266,7 @@ class Receiver:
                            fine_freq_hz=a.fine_freq_hz)
         return self._acq
 
+    @_stage
     def track_for_eph(self, n_ms: Optional[int] = None,
                       chunk_ms: int = 1000,
                       n_segments: int = 1) -> TrackRecords:
@@ -290,6 +309,7 @@ class Receiver:
     def _seg_stem(self, n_segments: int, halo_ms: int) -> str:
         return f"tckeph_seg{n_segments}_{halo_ms}_{self.cfg.file.name}.npz"
 
+    @_stage
     def track_for_eph_reference(self, chunk_ms: int = 1000,
                                 min_transition_index: int = 600
                                 ) -> TrackRecords:
@@ -366,16 +386,19 @@ class Receiver:
         # rows, edge-padded to the common length
         t_max = n1 + cnt_max + n10
         merged = {}
-        for f in _REC_FIELDS:
-            b, c = getattr(rec_b, f), np.repeat(getattr(rec_c, f), 10, axis=0)
-            rows = []
-            for ch in range(n_ch):
-                a = np.concatenate([b[:n1 + cnt[ch], ch], c[:, ch]])
-                pad = t_max - a.shape[0]
-                if pad:
-                    a = np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
-                rows.append(a)
-            merged[f] = np.stack(rows, axis=1)
+        with span("stage.merge", t_max):
+            for f in _REC_FIELDS:
+                b = getattr(rec_b, f)
+                c = np.repeat(getattr(rec_c, f), 10, axis=0)
+                rows = []
+                for ch in range(n_ch):
+                    a = np.concatenate([b[:n1 + cnt[ch], ch], c[:, ch]])
+                    pad = t_max - a.shape[0]
+                    if pad:
+                        a = np.concatenate([a, np.repeat(a[-1:], pad,
+                                                         axis=0)])
+                    rows.append(a)
+                merged[f] = np.stack(rows, axis=1)
         self._eph_records = TrackRecords(**merged)
         self._save_records(stem, self._eph_records)
         return self._eph_records
@@ -435,6 +458,7 @@ class Receiver:
         self._save_npz(stem, sv=acq.sv, countinx=cnt)
         return cnt
 
+    @_stage
     def decode(self, start_offset_ms: int = 3000):
         """Stage 3 (SDR_main.m:54): nav decode → ephemerides + sbf."""
         if self._eph is not None:
@@ -474,6 +498,7 @@ class Receiver:
         h = hashlib.sha1(np.asarray(init_pos_ecef, np.float64).tobytes())
         return h.hexdigest()[:8]
 
+    @_stage
     def ct_position(self, n_ms: Optional[int] = None,
                     init_pos_ecef: Optional[np.ndarray] = None,
                     multicorr: Optional[bool] = None, chunk_ms: int = 1000,
@@ -618,6 +643,7 @@ class Receiver:
                 + ("" if replica == "auto" else f"_{replica}")
                 + f"_{self._init_token(init_pos_ecef)}.pkl")
 
+    @_stage
     def vt_position(self, n_ms: Optional[int] = None,
                     ct_n_ms: Optional[int] = None,
                     init_pos_ecef: Optional[np.ndarray] = None,

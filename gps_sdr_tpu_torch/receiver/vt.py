@@ -79,6 +79,7 @@ from gps_sdr_tpu_torch.ops.loops import (cn0_moment_estimator,
 from gps_sdr_tpu_torch.ops.track_chunk import _wrap32
 from gps_sdr_tpu_torch.tracking import Q32, TrackRecords, chip_tables
 from gps_sdr_tpu_torch.utils.device import resolve_device
+from gps_sdr_tpu_torch.utils.spans import span
 
 
 class VTState(NamedTuple):
@@ -566,21 +567,24 @@ def _commit(dst: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
 
 def _capture(fn, bank: BankPlan) -> Tuple[torch.cuda.CUDAGraph, int]:
     """`fn()` captured into a CUDA graph on a side stream (nothing runs),
-    with the launches of `bank` it holds.  The capture draws its
-    temporaries from a pool of its own; a failure raises."""
+    with the launches of `bank` it holds (the span `vt.capture`'s `n`).
+    The capture draws its temporaries from a pool of its own; a failure
+    raises."""
     dev = bank.device
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream(dev)
-    before = bank.captured
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            fn()
-        finally:
-            graph.capture_end()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    return graph, bank.captured - before
+    with span("vt.capture") as sp:
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        before = bank.captured
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        sp.n = held = bank.captured - before
+    return graph, held
 
 
 def vt_scan(raw: torch.Tensor, chunk_start: int, state: VTState,
@@ -860,29 +864,43 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
     try:
         while done < n_ms:
             nb = min(chunk_ms, n_ms - done)
-            ptrs = state.ptr.cpu()
-            ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
-            length = (ptr_max - ptr_min) + nb * params.pdi_ms * S + blk + 64
-            raw = stager.stage(prefetcher.fetch(ptr_min, length))
-            state, rec = scan(
-                raw, ptr_min, state, chips, eph_struct, cfg.cmn.iono_alpha,
-                cfg.cmn.iono_beta, params, nb, fs, blk,
-                float(cfg.signal.f_if), float(cfg.signal.fc),
-                float(cfg.signal.code_freq_basis), int(cfg.cmn.day_of_year))
-            nb_next = min(chunk_ms, n_ms - done - nb)
-            if nb_next > 0:
-                prefetcher.prefetch(
-                    ptr_min + nb * params.pdi_ms * S - 2 * S,
-                    (ptr_max - ptr_min) + nb_next * params.pdi_ms * S
-                    + blk + 64 + 4 * S)
-            raise_on_fault(rec.pop("fault"))
-            for k, v in rec.items():
-                recs.setdefault(k, []).append(v.cpu().numpy())
+            with span("vt.chunk", nb):
+                ptrs = state.ptr.cpu()
+                ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
+                length = ((ptr_max - ptr_min) + nb * params.pdi_ms * S
+                          + blk + 64)
+                raw = stager.stage(prefetcher.fetch(ptr_min, length))
+                with span("vt.scan", nb):
+                    state, rec = scan(
+                        raw, ptr_min, state, chips, eph_struct,
+                        cfg.cmn.iono_alpha, cfg.cmn.iono_beta, params, nb, fs,
+                        blk, float(cfg.signal.f_if), float(cfg.signal.fc),
+                        float(cfg.signal.code_freq_basis),
+                        int(cfg.cmn.day_of_year))
+                nb_next = min(chunk_ms, n_ms - done - nb)
+                if nb_next > 0:
+                    prefetcher.prefetch(
+                        ptr_min + nb * params.pdi_ms * S - 2 * S,
+                        (ptr_max - ptr_min) + nb_next * params.pdi_ms * S
+                        + blk + 64 + 4 * S)
+                with span("vt.records", nb):
+                    raise_on_fault(rec.pop("fault"))
+                    for k, v in rec.items():
+                        recs.setdefault(k, []).append(v.cpu().numpy())
             done += nb
     finally:
         prefetcher.close()
     if use_mesh:
         state = pvt.gather_vt_state(mesh, state, n_real)
+    with span("vt.solutions", n_ms):
+        trk, sol = _solutions(recs, init_pos_ecef)
+    return trk, sol, state
+
+
+def _solutions(recs: Dict[str, list], init_pos_ecef: np.ndarray
+               ) -> Tuple[VTTrackRecords, VTSolutions]:
+    """The chunks' records joined, and the solutions' host float64
+    transforms."""
     cat = {k: np.concatenate(v) for k, v in recs.items()}
 
     pos = cat["total_state"][:, :3]
@@ -915,4 +933,4 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
         transmit_time=cat["transmit_time"], sv_vel=cat["sv_vel"],
         rem_chip=cat["rem_chip"], rem_phase=cat["rem_phase"],
         carr_nco=cat["carr_nco"])
-    return trk, sol, state
+    return trk, sol

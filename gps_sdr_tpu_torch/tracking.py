@@ -50,6 +50,7 @@ from gps_sdr_tpu_torch.ops.loops import loop_coefficients
 from gps_sdr_tpu_torch.ops.track_chunk import (ChunkSpec, raise_on_fault,
                                                track_chunk)
 from gps_sdr_tpu_torch.utils.device import resolve_device
+from gps_sdr_tpu_torch.utils.spans import span
 
 Q32 = 4294967296.0  # 2**32
 _REC_FIELDS = ("corr", "code_err", "carr_err", "code_freq", "carr_freq",
@@ -349,7 +350,9 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
             f"is not the {source.n_samples}-sample capture on {device}")
     n_blocks_total = n_ms // params.pdi_ms
     blocks_per_chunk = max(1, chunk_ms // params.pdi_ms)
-    tracker = track_scan if params.pdi_ms > 2 else track_chunk
+    tracker, tracker_span = ((track_scan, "tracking.scan")
+                             if params.pdi_ms > 2 else
+                             (track_chunk, "tracking.track_chunk"))
     n_real = len(prns)
     use_mesh = mesh is not None and mesh.size > 1
     if use_mesh and resident is not None:
@@ -371,27 +374,30 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
     try:
         while done < n_blocks_total:
             nb = min(blocks_per_chunk, n_blocks_total - done)
-            if not staged:
-                rec, state = tracker(resident, 0, state, chips, spec, nb)
-            else:
-                ptrs = state.ptr.cpu()
-                ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
-                length = (ptr_max - ptr_min) + spec.chunk_samples(nb)
-                raw = stager.stage(prefetcher.fetch(ptr_min, length))
-                rec, state = tracker(raw, ptr_min, state, chips, spec, nb)
+            with span("tracking.chunk", nb):
+                if staged:
+                    ptrs = state.ptr.cpu()
+                    ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
+                    length = (ptr_max - ptr_min) + spec.chunk_samples(nb)
+                    raw = stager.stage(prefetcher.fetch(ptr_min, length))
+                else:
+                    raw, ptr_min = resident, 0
+                with span(tracker_span, nb):
+                    rec, state = tracker(raw, ptr_min, state, chips, spec, nb)
                 nb_next = min(blocks_per_chunk, n_blocks_total - done - nb)
-                if nb_next > 0:
+                if staged and nb_next > 0:
                     # pointers advance ~nb·pdi·S with tens of samples of
                     # code-Doppler drift; 2·S of margin each side covers it
                     prefetcher.prefetch(
                         ptr_min + nb * params.pdi_ms * S - 2 * S,
                         (ptr_max - ptr_min) + spec.chunk_samples(nb_next)
                         + 4 * S)
-            raise_on_fault(rec)
-            parts.append(TrackRecords(
-                **{f: rec[f].cpu().numpy() for f in _REC_FIELDS},
-                i_early=params.i_early, i_prompt=params.i_prompt,
-                i_late=params.i_late))
+                with span("tracking.records", nb):
+                    raise_on_fault(rec)
+                    parts.append(TrackRecords(
+                        **{f: rec[f].cpu().numpy() for f in _REC_FIELDS},
+                        i_early=params.i_early, i_prompt=params.i_prompt,
+                        i_late=params.i_late))
             done += nb
     finally:
         if staged:

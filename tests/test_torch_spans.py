@@ -1,0 +1,239 @@
+"""The port's spans (`gps_sdr_tpu_torch/utils/spans.py`), on the CPU.
+
+Spans record only while a torch profiler session is active, in the
+program's own memory and on the host's realtime clock; they add no event
+to the profiler's trace.  A tiny `run_tracking` at pdi 1 and at pdi 10
+(two SVs at 2.5 MHz, three chunks each) and a tiny `run_vector_tracking`
+(the port-only scene of tests/test_torch_vt.py, eager on the CPU) are
+traced, and the tree of spans they leave is held to the table of sites:
+names, parents, threads and the work each span covers.
+"""
+
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from gps_sdr_tpu_torch import tracking as ttrack
+from gps_sdr_tpu_torch.config import (FileConfig, ReceiverConfig,
+                                      SignalConfig)
+from gps_sdr_tpu_torch.io.ifdata import IFSampleSource
+from gps_sdr_tpu_torch.io.synthetic import (SyntheticSV, generate_if_samples,
+                                            quantize_iq)
+from gps_sdr_tpu_torch.utils import spans
+
+torch.set_num_threads(2)
+
+FS, F_IF = 2.5e6, 0.6e6
+SVS = [SyntheticSV(prn=7, amplitude=3.0, doppler_hz=1234.5,
+                   code_delay_samples=800.0),
+       SyntheticSV(prn=21, amplitude=2.5, doppler_hz=-2500.25,
+                   code_delay_samples=1345.0)]
+CHUNK_MS = 40
+
+
+@pytest.fixture(scope="module")
+def scene():
+    cfg = ReceiverConfig(file=FileConfig(name="spans", skip_ms=0),
+                         signal=SignalConfig(f_if=F_IF, fs=FS))
+    sig = cfg.signal
+    S = sig.samples_per_ms
+    values = quantize_iq(generate_if_samples(cfg, SVS, 520, noise_std=4.0,
+                                             seed=3, device="cpu"))
+    delays, fine = [], []
+    for sv in SVS:
+        f_code = sig.code_freq_basis * (1 + sv.doppler_hz / sig.fc)
+        epoch = sv.code_delay_samples % (1023 / f_code * FS)
+        delays.append(int(round((S - epoch) % S)))
+        fine.append(F_IF + sv.doppler_hz + 3.0)
+    src = IFSampleSource.from_array(values, cfg.file)
+    state = ttrack.init_track_state(cfg, delays, fine, "cpu")
+    return dict(cfg=cfg, src=src, state=state, prns=[sv.prn for sv in SVS])
+
+
+def traced(fn):
+    """`fn()` under a CPU profiler session; its result, the spans that
+    started meanwhile, the profiler and the realtime clock read before
+    and after."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.time_ns()
+        out = fn()
+        t1 = time.time_ns()
+    return out, spans.recorded(t0, t1), prof, t0, t1
+
+
+def track(scene, pdi_ms, n_ms):
+    params = ttrack.TrackParams.epl(scene["cfg"], pdi_ms=pdi_ms)
+    return ttrack.run_tracking(scene["src"], scene["cfg"], scene["prns"],
+                               scene["state"], params, n_ms,
+                               chunk_ms=CHUNK_MS)
+
+
+def by_id(found):
+    return {s.id: s for s in found}
+
+
+def test_no_profiler_no_spans(scene):
+    """Without a profiler session `span` is the shared no-op, whatever
+    its arguments, takes an `n` it forgets, and nothing is recorded."""
+    assert spans.span("a") is spans.span("b", 7) is spans.OFF
+    t0 = time.time_ns()
+    with spans.span("tracking.chunk", 3) as sp:
+        sp.n = 5
+    assert sp.n == 0
+    track(scene, 1, 2 * CHUNK_MS)
+    assert spans.recorded(t0, time.time_ns()) == []
+
+
+@pytest.mark.parametrize("pdi_ms, n_ms", [(1, 3 * CHUNK_MS),
+                                          (10, 3 * CHUNK_MS)])
+def test_run_tracking_records_the_tree(scene, pdi_ms, n_ms):
+    """The chunk loop's tree: each `tracking.chunk` covers its blocks and
+    holds one `io.fetch`, `io.stage`, tracker span and `tracking.records`
+    of the same blocks; the prefetch thread's `io.read`s have no parent;
+    the first chunk's fetch misses and reads inside `io.fetch`; every
+    span lies inside the clock reads taken around the run."""
+    (rec, _), found, _, t0, t1 = traced(lambda: track(scene, pdi_ms, n_ms))
+    blocks = n_ms // pdi_ms
+    assert rec.num_sample.shape[0] == blocks
+    ids, main = by_id(found), threading.get_ident()
+    for s in found:
+        assert t0 <= s.start_ns <= s.end_ns <= t1
+    chunks = [s for s in found if s.name == "tracking.chunk"]
+    assert [c.n for c in chunks] == [blocks // 3] * 3
+    assert all(c.parent is None and c.thread == main for c in chunks)
+    tracker = "tracking.scan" if pdi_ms > 2 else "tracking.track_chunk"
+    for c in chunks:
+        kids = sorted((s for s in found if s.parent == c.id),
+                      key=lambda s: s.start_ns)
+        assert [k.name for k in kids] == ["io.fetch", "io.stage", tracker,
+                                          "tracking.records"]
+        assert kids[2].n == kids[3].n == c.n
+        assert all(c.start_ns <= k.start_ns and k.end_ns <= c.end_ns
+                   for k in kids)
+    reads = [s for s in found if s.name == "io.read"]
+    inside = [r for r in reads if r.parent is not None]
+    assert len(inside) == 1 and ids[inside[0].parent].name == "io.fetch"
+    assert inside[0].thread == main
+    ahead = [r for r in reads if r.parent is None]
+    assert len(ahead) == 2 and all(r.thread != main for r in ahead)
+    fetches = [s for s in found if s.name == "io.fetch"]
+    assert all(r.n >= f.n for r, f in zip(ahead, fetches[1:]))
+    stages = [s for s in found if s.name == "io.stage"]
+    assert all(st.n == 2 * f.n for st, f in zip(stages, fetches))  # int8 IQ
+
+
+def test_spans_stay_out_of_the_profilers_trace(scene):
+    """No span name is among the profiler's own events: spans never
+    become `record_function` ranges, whose device-side annotations a
+    reader of the trace would count as kernels."""
+    _, found, prof, _, _ = traced(lambda: track(scene, 10, 2 * CHUNK_MS))
+    names = {s.name for s in found}
+    assert {"tracking.chunk", "tracking.scan", "io.fetch"} <= names
+    events = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert events and not names & events
+
+
+def test_nested_spans_and_their_parents():
+    """Parents follow the enclosing span on the same thread; another
+    thread's spans start a stack of their own; `n` set inside a span is
+    what it records."""
+    def worker():
+        with spans.span("inner.thread", 2):
+            pass
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        t0 = time.time_ns()
+        with spans.span("outer") as outer:
+            with spans.span("middle", 1):
+                with spans.span("leaf") as leaf:
+                    leaf.n = 9
+            th = threading.Thread(target=worker)
+            th.start()
+            th.join(timeout=30)
+        assert not th.is_alive()
+        found = {s.name: s for s in spans.recorded(t0, time.time_ns())}
+    assert found["outer"].parent is None and outer.id == found["outer"].id
+    assert found["middle"].parent == found["outer"].id
+    assert found["leaf"].parent == found["middle"].id
+    assert found["leaf"].n == 9 and found["middle"].n == 1
+    assert found["inner.thread"].parent is None
+    assert found["inner.thread"].thread != found["outer"].thread
+
+
+def test_run_vector_tracking_records_its_spans():
+    """A tiny VT run, eager on the CPU: one `vt.chunk` a chunk holding
+    `io.fetch`, `io.stage`, `vt.scan` (n the chunk's steps) and
+    `vt.records`, then one `vt.solutions` over all steps; no graph is
+    captured on the CPU."""
+    from test_torch_vt import F_IF as VT_IF
+    from test_torch_vt import FS as VT_FS
+    from test_torch_vt import _STATIC_LLH, _static_scene
+
+    from gps_sdr_tpu_torch.geo.coords import llh2xyz
+    from gps_sdr_tpu_torch.receiver import vt as tvt
+
+    n_ms, chunk = 50, 20
+    raw, state, args = _static_scene(torch.device("cpu"), n_ms + 10)
+    cfg = ReceiverConfig(file=FileConfig(name="spans", skip_ms=0),
+                         signal=SignalConfig(f_if=VT_IF, fs=VT_FS))
+    src = IFSampleSource.from_array(raw.numpy().reshape(-1), cfg.file)
+    usr = llh2xyz(np.asarray(_STATIC_LLH)).numpy()
+    prns = [3, 7, 16, 22, 27]
+
+    (trk, _, _), found, _, _, _ = traced(lambda: tvt.run_vector_tracking(
+        src, cfg, prns, args["eph"], state, args["params"], n_ms, usr,
+        chunk_ms=chunk))
+    assert trk.num_sample.shape[0] == n_ms
+    chunks = [s for s in found if s.name == "vt.chunk"]
+    assert [c.n for c in chunks] == [20, 20, 10]
+    for c in chunks:
+        kids = sorted((s for s in found if s.parent == c.id),
+                      key=lambda s: s.start_ns)
+        assert [k.name for k in kids] == ["io.fetch", "io.stage", "vt.scan",
+                                          "vt.records"]
+        assert kids[2].n == kids[3].n == c.n
+    (sol,) = [s for s in found if s.name == "vt.solutions"]
+    assert sol.n == n_ms and sol.parent is None
+    assert not [s for s in found if s.name == "vt.capture"]
+
+
+def test_receiver_stages_record_their_spans(scene, tmp_path):
+    """A stage is a span `stage.<entry>` holding the stages it calls, its
+    loads, its chunks and its save; a second Receiver over the same
+    directory loads the record inside its stage span."""
+    from gps_sdr_tpu_torch.pipeline import Receiver
+
+    cfg, st = scene["cfg"], scene["state"]
+    S = cfg.signal.samples_per_ms
+    delays = (S - st.ptr.numpy() + 1).astype(np.int64)
+    fine = st.carr_freq.numpy()
+    np.savez(tmp_path / f"acquired_{cfg.file.name}_0.npz",
+             sv=np.asarray(scene["prns"]), snr_db=np.full(2, 20.0),
+             doppler_hz=fine - F_IF, code_delay=delays, fine_freq_hz=fine)
+
+    def stage():
+        rx = Receiver(cfg, scene["src"], artifact_dir=str(tmp_path),
+                      device="cpu", mesh=None)
+        return rx.track_for_eph(n_ms=2 * CHUNK_MS, chunk_ms=CHUNK_MS)
+
+    rec, found, _, _, _ = traced(stage)
+    assert rec.num_sample.shape[0] == 2 * CHUNK_MS
+    (root,) = [s for s in found if s.parent is None
+               and s.thread == threading.get_ident()]
+    assert root.name == "stage.track_for_eph"
+    ids = by_id(found)
+    kids = sorted((s for s in found if s.parent == root.id),
+                  key=lambda s: s.start_ns)
+    assert [k.name for k in kids] == ["stage.acquisition", "tracking.chunk",
+                                      "tracking.chunk", "stage.save"]
+    (load,) = [s for s in found if s.name == "stage.load"]
+    assert ids[load.parent].name == "stage.acquisition"
+
+    again, found, _, _, _ = traced(stage)
+    np.testing.assert_array_equal(again.corr, rec.corr)
+    assert [(s.name, s.parent) for s in found] == [
+        ("stage.load", found[1].id), ("stage.track_for_eph", None)]
