@@ -21,7 +21,7 @@ a pinned buffer of bounded size.
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -173,11 +173,18 @@ def upload_capture(source: IFSampleSource, device) -> torch.Tensor:
 
 
 class ChunkPrefetcher:
-    """Overlap the next chunk's host read with the device's work on the
-    current one.  `fetch` serves any window contained in the pending
-    prefetch by slicing; a miss reads directly.  The span `io.fetch` is
-    the caller's wait, `io.read` each read (on the prefetch thread, or
-    inside `io.fetch` on a miss)."""
+    """Overlap the next chunk's host read with the caller's work on the
+    current one.
+
+    `fetch(start, n, then)` returns samples [start, start+n), sliced from
+    the pending read when it holds them (a miss reads inline), and before
+    returning submits the read of `then`, the next chunk's (start, n), to
+    a thread of its own: that read runs while the caller stages the
+    chunk, issues its tracker and waits for its records.  A read returns
+    an array of its own, so the view `fetch` returned stays valid while
+    the next read runs.  The span `io.fetch` is the caller's wait,
+    `io.read` each read (on the prefetch thread, or inside `io.fetch` on
+    a miss)."""
 
     def __init__(self, read_fn):
         self._read_fn = read_fn
@@ -188,19 +195,24 @@ class ChunkPrefetcher:
         with span("io.read", n):
             return self._read_fn(start, n)
 
-    def prefetch(self, start: int, n: int) -> None:
+    def _submit(self, start: int, n: int) -> None:
         self._pending = (start, n, self._pool.submit(self._read, start, n))
 
-    def fetch(self, start: int, n: int) -> np.ndarray:
+    def fetch(self, start: int, n: int,
+              then: Optional[Tuple[int, int]] = None) -> np.ndarray:
         with span("io.fetch", n):
+            arr = None
             if self._pending is not None:
                 p_start, p_n, fut = self._pending
                 self._pending = None
-                arr = fut.result()
+                got = fut.result()
                 if p_start <= start and start + n <= p_start + p_n:
-                    off = start - p_start
-                    return arr[off:off + n]
-            return self._read(start, n)
+                    arr = got[start - p_start:start - p_start + n]
+            if arr is None:
+                arr = self._read(start, n)
+            if then is not None:
+                self._submit(*then)
+            return arr
 
     def close(self) -> None:
         if self._pending is not None:

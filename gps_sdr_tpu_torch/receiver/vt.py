@@ -830,7 +830,9 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
     """Host loop of the VT scan: chunk the capture, collect the records.
 
     Runs on the device of `state`; `eph_struct` must be there too.  The
-    next chunk's host read overlaps the device's work on the current one.
+    next chunk's host read is submitted as the current chunk's fetch
+    returns (ChunkPrefetcher), its window from the current pointers, so it
+    runs while this chunk is staged and its `vt_scan` issued.
 
     `mesh` (a `parallel.mesh.Mesh`) shards the channel axis over its ranks
     (`parallel/vt.py`; the JAX package's gps_sdr_tpu/receiver/vt.py:740-805):
@@ -864,12 +866,17 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
     try:
         while done < n_ms:
             nb = min(chunk_ms, n_ms - done)
+            nb_next = min(chunk_ms, n_ms - done - nb)
             with span("vt.chunk", nb):
                 ptrs = state.ptr.cpu()
                 ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
                 length = ((ptr_max - ptr_min) + nb * params.pdi_ms * S
                           + blk + 64)
-                raw = stager.stage(prefetcher.fetch(ptr_min, length))
+                then = ((ptr_min + nb * params.pdi_ms * S - 2 * S,
+                         (ptr_max - ptr_min) + nb_next * params.pdi_ms * S
+                         + blk + 64 + 4 * S)
+                        if nb_next > 0 else None)
+                raw = stager.stage(prefetcher.fetch(ptr_min, length, then))
                 with span("vt.scan", nb):
                     state, rec = scan(
                         raw, ptr_min, state, chips, eph_struct,
@@ -877,12 +884,6 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
                         blk, float(cfg.signal.f_if), float(cfg.signal.fc),
                         float(cfg.signal.code_freq_basis),
                         int(cfg.cmn.day_of_year))
-                nb_next = min(chunk_ms, n_ms - done - nb)
-                if nb_next > 0:
-                    prefetcher.prefetch(
-                        ptr_min + nb * params.pdi_ms * S - 2 * S,
-                        (ptr_max - ptr_min) + nb_next * params.pdi_ms * S
-                        + blk + 64 + 4 * S)
                 with span("vt.records", nb):
                     raise_on_fault(rec.pop("fault"))
                     for k, v in rec.items():

@@ -315,10 +315,12 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
     blocks of up to 2 ms, `track_scan` for longer ones
     (gps_sdr_tpu/tracking.py:550-554 routes them the same way).
 
-    The next chunk's host read overlaps the device's work on the current
-    one (ChunkPrefetcher); the prefetch is sized from the real fetch
-    (pointer spread + the chunk's full window + 2·S of drift margin on
-    each side), so it is served without a second read.
+    The next chunk's host read is submitted as the current chunk's fetch
+    returns (ChunkPrefetcher), so it runs while this chunk is staged, its
+    tracker issued and its records read back; its window comes from the
+    current pointers alone (pointer spread + the next chunk's full window
+    + 2·S of drift margin on each side), so it is served without a second
+    read.
 
     `resident`: the whole capture already on the state's device
     (`io.ifdata.upload_capture`).  Every chunk then reads it in place, from
@@ -374,24 +376,23 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
     try:
         while done < n_blocks_total:
             nb = min(blocks_per_chunk, n_blocks_total - done)
+            nb_next = min(blocks_per_chunk, n_blocks_total - done - nb)
             with span("tracking.chunk", nb):
                 if staged:
                     ptrs = state.ptr.cpu()
                     ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
                     length = (ptr_max - ptr_min) + spec.chunk_samples(nb)
-                    raw = stager.stage(prefetcher.fetch(ptr_min, length))
+                    # pointers advance ~nb·pdi·S with tens of samples of
+                    # code-Doppler drift; 2·S of margin each side covers it
+                    then = ((ptr_min + nb * params.pdi_ms * S - 2 * S,
+                             (ptr_max - ptr_min)
+                             + spec.chunk_samples(nb_next) + 4 * S)
+                            if nb_next > 0 else None)
+                    raw = stager.stage(prefetcher.fetch(ptr_min, length, then))
                 else:
                     raw, ptr_min = resident, 0
                 with span(tracker_span, nb):
                     rec, state = tracker(raw, ptr_min, state, chips, spec, nb)
-                nb_next = min(blocks_per_chunk, n_blocks_total - done - nb)
-                if staged and nb_next > 0:
-                    # pointers advance ~nb·pdi·S with tens of samples of
-                    # code-Doppler drift; 2·S of margin each side covers it
-                    prefetcher.prefetch(
-                        ptr_min + nb * params.pdi_ms * S - 2 * S,
-                        (ptr_max - ptr_min) + spec.chunk_samples(nb_next)
-                        + 4 * S)
                 with span("tracking.records", nb):
                     raise_on_fault(rec)
                     parts.append(TrackRecords(

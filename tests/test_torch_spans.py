@@ -20,7 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 from gps_sdr_tpu_torch import tracking as ttrack
 from gps_sdr_tpu_torch.config import (FileConfig, ReceiverConfig,
                                       SignalConfig)
-from gps_sdr_tpu_torch.io.ifdata import IFSampleSource
+from gps_sdr_tpu_torch.io.ifdata import ChunkPrefetcher, IFSampleSource
 from gps_sdr_tpu_torch.io.synthetic import (SyntheticSV, generate_if_samples,
                                             quantize_iq)
 from gps_sdr_tpu_torch.utils import spans
@@ -126,6 +126,116 @@ def test_run_tracking_records_the_tree(scene, pdi_ms, n_ms):
     assert all(st.n == 2 * f.n for st, f in zip(stages, fetches))  # int8 IQ
 
 
+@pytest.fixture
+def submissions(monkeypatch):
+    """Every read `ChunkPrefetcher` submits, as (ns, thread, start, n),
+    stamped as it is submitted."""
+    stamps = []
+    submit = ChunkPrefetcher._submit
+
+    def stamped(self, start, n):
+        stamps.append((time.time_ns(), threading.get_ident(), start, n))
+        submit(self, start, n)
+
+    monkeypatch.setattr(ChunkPrefetcher, "_submit", stamped)
+    return stamps
+
+
+def served_ahead(found, stamps, chunk_name, tracker):
+    """The order of one chunked call: chunk k's fetch submits chunk k+1's
+    read, from the main thread, before chunk k's tracker span starts, and
+    the last chunk's submits none; only the first fetch reads inline."""
+    main = threading.get_ident()
+    chunks = [s for s in found if s.name == chunk_name]
+    fetches = sorted((s for s in found if s.name == "io.fetch"),
+                     key=lambda s: s.start_ns)
+    trackers = sorted((s for s in found if s.name == tracker),
+                      key=lambda s: s.start_ns)
+    assert len(chunks) == len(fetches) == len(trackers) == 3
+    assert len(stamps) == 2 and all(th == main for _, th, _, _ in stamps)
+    for (t, _, _, n), f, tr, f_next in zip(stamps, fetches, trackers,
+                                           fetches[1:]):
+        assert f.start_ns <= t <= f.end_ns <= tr.start_ns
+        assert n >= f_next.n
+    assert fetches[-1].end_ns <= trackers[-1].start_ns
+    inside = [r for r in found if r.name == "io.read"
+              and r.parent is not None]
+    assert len(inside) == 1 and inside[0].parent == fetches[0].id
+    ahead = [r for r in found if r.name == "io.read" and r.parent is None]
+    assert len(ahead) == 2 and all(r.thread != main for r in ahead)
+    assert all(r.start_ns >= t for r, (t, _, _, _) in zip(
+        sorted(ahead, key=lambda s: s.start_ns), stamps))
+
+
+@pytest.mark.parametrize("pdi_ms", [1, 10])
+def test_run_tracking_reads_ahead_of_the_tracker(scene, submissions, pdi_ms):
+    """Over three chunks the next chunk's read is submitted inside the
+    current chunk's `io.fetch`, before its tracker span starts, and each
+    later fetch is served from it; the records and the end state equal a
+    one-chunk run's bit for bit."""
+    n_ms = 3 * CHUNK_MS
+    (rec, st), found, _, _, _ = traced(lambda: track(scene, pdi_ms, n_ms))
+    tracker = "tracking.scan" if pdi_ms > 2 else "tracking.track_chunk"
+    served_ahead(found, submissions, "tracking.chunk", tracker)
+    del submissions[:]
+    params = ttrack.TrackParams.epl(scene["cfg"], pdi_ms=pdi_ms)
+    one, st1 = ttrack.run_tracking(scene["src"], scene["cfg"],
+                                   scene["prns"], scene["state"], params,
+                                   n_ms, chunk_ms=n_ms)
+    assert submissions == []
+    for f in ttrack._REC_FIELDS:
+        np.testing.assert_array_equal(getattr(rec, f), getattr(one, f),
+                                      err_msg=f)
+    for a, b in zip(st, st1):
+        assert torch.equal(a, b)
+
+
+def test_chunk_prefetcher_reads_the_next_window_ahead(scene):
+    """`fetch` with a next window returns what a fetch without one
+    returns and leaves that window's read running on the prefetch thread;
+    the next fetch inside it is served from it, and the view it returned
+    before still holds its samples; a fetch outside it reads inline;
+    `close` waits for a read still pending."""
+    src = scene["src"]
+    gate, started = threading.Event(), threading.Semaphore(0)
+    calls, main = [], threading.get_ident()
+
+    def read(start, n):
+        calls.append((start, n, threading.get_ident() == main))
+        if threading.get_ident() != main:
+            started.release()
+            assert gate.wait(timeout=30)
+        return src.read_iq_values(start, n)
+
+    pf = ChunkPrefetcher(read)
+    plain = pf.fetch(100, 50)
+    a = pf.fetch(100, 50, then=(140, 60))
+    assert started.acquire(timeout=30)      # running, held at the gate
+    np.testing.assert_array_equal(a, plain)
+    np.testing.assert_array_equal(a, src.read_iq_values(100, 50))
+    assert calls == [(100, 50, True), (100, 50, True), (140, 60, False)]
+    gate.set()
+    b = pf.fetch(150, 40, then=(185, 30))
+    np.testing.assert_array_equal(b, src.read_iq_values(150, 40))
+    assert started.acquire(timeout=30)
+    np.testing.assert_array_equal(a, plain)
+    assert calls[3:] == [(185, 30, False)]
+    c = pf.fetch(300, 10)
+    np.testing.assert_array_equal(c, src.read_iq_values(300, 10))
+    assert calls[4:] == [(300, 10, True)]
+
+    gate.clear()
+    pf.fetch(0, 10, then=(20, 10))
+    assert started.acquire(timeout=30)
+    closer = threading.Thread(target=pf.close)
+    closer.start()
+    closer.join(timeout=0.2)
+    assert closer.is_alive()
+    gate.set()
+    closer.join(timeout=30)
+    assert not closer.is_alive() and calls[-1] == (20, 10, False)
+
+
 def test_spans_stay_out_of_the_profilers_trace(scene):
     """No span name is among the profiler's own events: spans never
     become `record_function` ranges, whose device-side annotations a
@@ -199,6 +309,43 @@ def test_run_vector_tracking_records_its_spans():
     (sol,) = [s for s in found if s.name == "vt.solutions"]
     assert sol.n == n_ms and sol.parent is None
     assert not [s for s in found if s.name == "vt.capture"]
+
+
+def test_run_vector_tracking_reads_ahead_of_the_scan(submissions):
+    """A tiny VT run over three chunks submits each next chunk's read
+    inside the current chunk's `io.fetch`, before its `vt.scan` starts,
+    and serves each later fetch from it; with a Kepler cadence that
+    divides the chunk, its records and solutions equal a one-chunk run's
+    bit for bit."""
+    import dataclasses
+
+    from test_torch_vt import F_IF as VT_IF
+    from test_torch_vt import FS as VT_FS
+    from test_torch_vt import _STATIC_LLH, _static_scene
+
+    from gps_sdr_tpu_torch.geo.coords import llh2xyz
+    from gps_sdr_tpu_torch.receiver import vt as tvt
+
+    n_ms, chunk = 60, 20
+    raw, state, args = _static_scene(torch.device("cpu"), n_ms + 10)
+    params = dataclasses.replace(args["params"], kepler_update_ms=chunk)
+    cfg = ReceiverConfig(file=FileConfig(name="spans", skip_ms=0),
+                         signal=SignalConfig(f_if=VT_IF, fs=VT_FS))
+    src = IFSampleSource.from_array(raw.numpy().reshape(-1), cfg.file)
+    usr = llh2xyz(np.asarray(_STATIC_LLH)).numpy()
+
+    def run(chunk_ms):
+        return tvt.run_vector_tracking(src, cfg, [3, 7, 16, 22, 27],
+                                       args["eph"], state, params, n_ms,
+                                       usr, chunk_ms=chunk_ms)
+
+    (trk, sol, _), found, _, _, _ = traced(lambda: run(chunk))
+    served_ahead(found, submissions, "vt.chunk", "vt.scan")
+    trk1, sol1, _ = run(n_ms)
+    for got, want in ((trk, trk1), (sol, sol1)):
+        for f, v in vars(want).items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(getattr(got, f), v, err_msg=f)
 
 
 def test_receiver_stages_record_their_spans(scene, tmp_path):
