@@ -3,8 +3,10 @@
 Everything here is general.  A cell names a configuration (a JSON file
 under `configs/`, named by `BENCHMARK.json`), a traffic mix (`traffic/
 <name>.json`: the set-up stages, the pass, the kind of output, the
-correctness limits) and, through the manifest, the metrics it reports
-(`metrics/<name>.py`, each with `read(ctx)`).  A later cell, mix or metric
+tracker, the correctness limits) and, through the manifest, the metrics
+it reports (`metrics/<name>.py`, each with `read(ctx)`).  The kind of
+output is a module of its own (`outputs/<kind>.py`) that keeps, judges
+and counts a pass of that kind.  A later cell, mix, output kind or metric
 is a new file and a new entry; nothing here names one.
 
 A run: synthesize the capture on the card from the seed (host memory,
@@ -81,14 +83,28 @@ def cell_metrics(man: dict, workload: str, trace: bool) -> List[dict]:
                 else m["moves"] in names)]
 
 
-def load_reader(name: str, root: str = ROOT):
-    """`metrics/<name>.py`'s `read`."""
-    path = os.path.join(root, "sdrbench", "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "sdrbench_metric_" + name.replace(".", "_"), path)
+def _load(path: str, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(name: str, root: str = ROOT):
+    """`metrics/<name>.py`'s `read`."""
+    return _load(os.path.join(root, "sdrbench", "metrics", name + ".py"),
+                 "sdrbench_metric_" + name.replace(".", "_")).read
+
+
+def load_output(kind: str, root: str = ROOT):
+    """`outputs/<kind>.py`: the module that keeps a pass's result of that
+    kind (`keep`), judges it (`judge`), counts what it covered
+    (`covered_samples`, `steps`) and the kernel launches it made
+    (`launches`)."""
+    path = os.path.join(root, "sdrbench", "outputs", kind + ".py")
+    if not os.path.isfile(path):
+        raise ValueError(f"unknown output kind {kind!r}: no file {path}")
+    return _load(path, "sdrbench_output_" + kind.replace(".", "_"))
 
 
 def merged(base: dict, over: Optional[dict]) -> dict:
@@ -175,6 +191,7 @@ class Run:
         self.mix = merged(load_json(os.path.join(
             root, "sdrbench", "traffic", self.cell["traffic"] + ".json")),
             (overrides or {}).get("mix"))
+        self.output = load_output(self.mix["output"], root)
         self.dev = (card(self.cell["chips"]) if device is None
                     else torch.device(device))
         self.cuda = self.dev.type == "cuda"
@@ -226,7 +243,6 @@ class Run:
         """The mix's pass from the set-up state: a new Receiver over the
         set-up's artifacts, whatever an earlier pass wrote deleted."""
         import torch
-        from sdrbench import judge
         from gps_sdr_tpu_torch.pipeline import Receiver
         for f in os.listdir(self.work):
             if f not in self.base:
@@ -237,7 +253,7 @@ class Run:
         out = getattr(r, entry)(**kwargs)
         if self.cuda:
             torch.cuda.synchronize(self.dev)
-        return judge.keep(self.mix["output"], out)
+        return self.output.keep(out)
 
     def window(self, seconds: float, trace: bool) -> None:
         """Passes back to back until `seconds` have gone by (the window
@@ -299,7 +315,7 @@ class Run:
         rng = np.random.default_rng(self.seed)
         judged = self.untraced + self.passes
         per_pass = max(1, self.mix["check_blocks"] // len(judged))
-        gaps = judge.judge_passes(self.case, judged, rng, per_pass, dtype)
+        gaps = self.output.judge(self.case, judged, rng, per_pass, dtype)
         if dtype == np.float64:
             gaps.insert(0, judge.judge_start(self.case,
                                              self.cfg["sky"]["prns"]))
@@ -313,18 +329,20 @@ class Run:
         """The result line: `correct` from the gaps, the cell's metrics
         (per-layer ones for a traced window), the device, the checks."""
         import torch
-        from sdrbench import judge, launches
+        from sdrbench import launches
         v = self.verdict(gaps)
-        kind = self.mix["output"]
+        out = self.output
         ctx = SimpleNamespace(
             setup_s=self.setup_s, window_s=self.window_s,
             passes=self.passes, trace=self.trace, cfg=self.cfg,
-            mix=self.mix, case=self.case,
-            covered_s=sum(judge.covered_samples(kind, r,
-                                                self.case.init["ptr"])
+            mix=self.mix, case=self.case, output=out,
+            covered_s=sum(out.covered_samples(r, self.case.init["ptr"])
                           for r in self.passes) / self.case.fs,
-            steps=sum(judge.steps(kind, r) for r in self.passes),
+            steps=sum(out.steps(r) for r in self.passes),
             untraced_s=self.untraced_s, sample_bytes=self.values.itemsize)
+        # each launch's bound, by kernel, worked out once for the readers
+        ctx.launches = (out.launches(ctx, self.passes[0])
+                        if self.trace is not None else {})
         metrics = {}
         for m in cell_metrics(self.man, self.workload,
                               self.trace is not None):

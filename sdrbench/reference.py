@@ -181,18 +181,23 @@ def loop_rows(prev: Dict[str, np.ndarray], corr: np.ndarray, spec: dict,
                 carr_freq=carr_freq + d_carr, step=step, carr_fp=carr_fp)
 
 
-def track_spec(track: dict, fs: float, pdi_ms: int) -> dict:
-    """The loop constants of the eph stages' E/P/L tracker (trackingCT.m):
-    taps (−d, 0, +d), round(), codeFreq = basis − nco, dt = 1 ms."""
+def track_spec(track: dict, fs: float, pdi_ms: int, tracker: dict) -> dict:
+    """The loop constants of a scalar tracker: the configuration's loop
+    filters, dt = 1 ms, and the tracker's taps, E/P/L columns, rounding of
+    the block length and DLL sign (codeFreq = basis + dll_sign·nco)
+    (trackingCT.m: taps (−d, 0, +d), round(), −1;
+    trackingCT_POS_updated.m: ceil(), +1); the sums are not negated."""
     tc1, tc2 = loop_coefficients(track["dll_bw_hz"], track["dll_damping"],
                                  track["dll_gain"])
     tr1, tr2 = loop_coefficients(track["pll_bw_hz"], track["pll_damping"],
                                  track["pll_gain"])
-    d = track["correlator_spacing"]
-    return dict(n_chips=CODE_LENGTH * pdi_ms, fs=fs, ceil=False,
-                dll_sign=-1.0, gains=(tc2 / tc1, 1e-3 / tc1, tr2 / tr1,
-                                      1e-3 / tr1),
-                epl=(0, 1, 2), taps=(-d, 0.0, d), sign=1.0)
+    return dict(n_chips=CODE_LENGTH * pdi_ms, fs=fs,
+                ceil=tracker["rounding"] == "ceil",
+                dll_sign=float(tracker["dll_sign"]),
+                gains=(tc2 / tc1, 1e-3 / tc1, tr2 / tr1, 1e-3 / tr1),
+                epl=tuple(int(i) for i in tracker["epl"]),
+                taps=tuple(float(t) for t in tracker["taps"]),
+                sign=1.0)
 
 
 def init_state(code_delay: np.ndarray, fine_freq: np.ndarray, skip_ms: int,
@@ -265,24 +270,31 @@ def recorded_rows(rec: Dict[str, np.ndarray], rows, chans
 
 
 def block_plan(rec: Dict[str, np.ndarray], init: dict, track: dict,
-               fs: float, S: int, g: Gaps, n1: int = 0,
+               fs: float, S: int, g: Gaps, tracker: dict, n1: int = 0,
                min_transition: int = 600):
-    """The blocks of the 3-phase schedule's merged tracking record
-    (trackingCT.m), phase by phase: a list of (spec, rows (B, N),
-    prev-state dict of (B, N) arrays[, channel]).
+    """The blocks of a scalar tracking stage's record, phase by phase: a
+    list of (spec, rows (B, N), prev-state dict of (B, N) arrays[,
+    channel]), by the tracker's `schedule`:
 
-    Per channel n1 + countinx rows at 1 ms from `init`, then 10 ms
-    blocks, each repeated ×10, from the re-based pointer ptr0 +
-    (n1+countinx)·S with the loops resumed from the last 1 ms row,
-    edge-padded at the end.  countinx is found again from the 1 ms rows;
-    a channel whose record does not switch where it says counts as a
-    mismatch."""
+    - "serial": every row at 1 ms from `init`, with no switch;
+    - "eph_ref", the 3-phase schedule's merged record (trackingCT.m): per
+      channel n1 + countinx rows at 1 ms from `init`, then 10 ms blocks,
+      each repeated ×10, from the re-based pointer ptr0 + (n1+countinx)·S
+      with the loops resumed from the last 1 ms row, edge-padded at the
+      end.  countinx is found again from the 1 ms rows' prompt; a channel
+      whose record does not switch where it says counts as a mismatch."""
     T, N = rec["num_sample"].shape
     chans = np.arange(N)
-    s1 = track_spec(track, fs, 1)
+    s1 = track_spec(track, fs, 1, tracker)
+    if tracker["schedule"] == "serial":
+        rows = np.arange(T)[:, None].repeat(N, 1)
+        prev = {k: np.concatenate([v[None], state_after(
+            rec, rows[:-1], chans[None, :])[k]]) for k, v in init.items()}
+        return [(s1, rows, prev)]
     # the 10 ms phase negates its correlator outputs (trackingCT.m:377-525)
-    s10 = dict(track_spec(track, fs, 10), sign=-1.0)
-    cnt = np.array([detect_bit_transition(rec["corr"][:n1, ch, 1, 0],
+    s10 = dict(track_spec(track, fs, 10, tracker), sign=-1.0)
+    prompt = s1["epl"][1]
+    cnt = np.array([detect_bit_transition(rec["corr"][:n1, ch, prompt, 0],
                                           min_transition) for ch in chans])
     # the record's own switch, the first row of a 10 ms block, against
     # the one countinx puts it at
@@ -418,7 +430,7 @@ def vt_rows(prev: Dict[str, np.ndarray], row: Dict[str, np.ndarray],
     carr_fp = wrap32(np.round(prev["carr_freq"].astype(f) / fs * f(Q32))
                      .astype(np.int64))
     new_rem = num.astype(f) * (code_freq / fs) + rem - f(CODE_LENGTH)
-    carr_err = pll_disc(row["corr"], 1, np.float32).astype(f)
+    carr_err = pll_disc(row["corr"], k["epl"][1], np.float32).astype(f)
     d_pll = (f(k["pll_p"]) * (carr_err - prev["carr_err"].astype(f))
              + carr_err * f(k["pll_i"]))
     return dict(num=num, ptr=prev["ptr"] + num, rem=new_rem,
@@ -519,14 +531,16 @@ def vt_measurements(geo: dict, corr: np.ndarray, code_freq: np.ndarray,
     predicted pseudorange's step over dt (…:218-223), z_pr = the code
     discriminator × c / codeFreq (…:316-321), z_prr = a·(v − v_sv) −
     (carrFreq − IF)·c/fc − drift + the SV clock rate (…:379-382).
-    corr (B, T, N, 3, 2) with the early tap first and the late last."""
+    corr (B, T, N, taps, 2), early and late at the columns k["epl"][0]
+    and k["epl"][2]."""
     f = dtype
     pred = geo["range_head"].astype(f) + geo["range_move"].astype(f)
     delta = np.zeros_like(pred)
     delta[:, 1:] = (pred[:, 1:] - pred[:, :-1]) / f(1e-3)
     c = corr.astype(np.float32) if f == np.float32 else corr
-    e = np.sqrt(c[..., 0, 0] ** 2 + c[..., 0, 1] ** 2).astype(f)
-    late = np.sqrt(c[..., 2, 0] ** 2 + c[..., 2, 1] ** 2).astype(f)
+    ie, _, il = k["epl"]
+    e = np.sqrt(c[..., ie, 0] ** 2 + c[..., ie, 1] ** 2).astype(f)
+    late = np.sqrt(c[..., il, 0] ** 2 + c[..., il, 1] ** 2).astype(f)
     code_err = f(-0.5) * (e - late) / np.maximum(e + late, f(1e-30))
     z_pr = code_err * (f(k["c"]) / code_freq.astype(f))
     x0 = geo["x0"].astype(f)
@@ -682,8 +696,9 @@ def judge_vt(recs: List[Dict[str, np.ndarray]], k: dict, eph: dict,
     corr = S["corr"]
     geo = vt_geometry(S["transmit_time"], S["num_sample"], x, eph, k, device)
     delta, z = vt_measurements(geo, corr, S["code_freq"], S["carr_freq"], k)
-    p2 = (corr[..., 1, 0].astype(np.float64) ** 2
-          + corr[..., 1, 1].astype(np.float64) ** 2)
+    ip = k["epl"][1]
+    p2 = (corr[..., ip, 0].astype(np.float64) ** 2
+          + corr[..., ip, 1].astype(np.float64) ** 2)
     ref = vt_rows(prev, dict(corr=corr[:, b], delta_pr=S["delta_pr"][:, b]),
                   k)
     if dtype == np.float64:
@@ -764,7 +779,7 @@ def judge_vt(recs: List[Dict[str, np.ndarray]], k: dict, eph: dict,
             want = correlate(*args)
             got = (corr[i, t + 1] if dtype == np.float64
                    else correlate(*args, dtype=dtype))
-            g.put("bank_corr_rel", corr_gap(got, want, 1))
+            g.put("bank_corr_rel", corr_gap(got, want, ip))
         g.add("blocks_checked", (T - 1) * N)
         out.append(g)
     return out

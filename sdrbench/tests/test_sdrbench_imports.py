@@ -13,7 +13,7 @@ from conftest import ROOT
 
 BENCH = os.path.join(ROOT, "sdrbench")
 FORBIDDEN = {"jax", "jaxlib", "flax", "gps_sdr_tpu"}
-PLAIN = ("reference.py", "roofline.py", "sky.py", "frozen")
+PLAIN = ("reference.py", "roofline.py", "sky.py", "frozen", "outputs")
 
 
 def sources():
@@ -58,14 +58,17 @@ def test_no_measuring_script_of_the_repository_is_read():
 
 
 def test_a_run_loads_no_forbidden_module():
-    """The harness and a reader of every metric, imported in a process of
-    their own: no JAX, no JAX package in sys.modules."""
-    code = ("import sys; sys.path.insert(0, %r)\n"
+    """The harness, a reader of every metric and every output kind,
+    imported in a process of their own: no JAX, no JAX package in
+    sys.modules."""
+    code = ("import sys, os; sys.path.insert(0, %r)\n"
             "from sdrbench import harness, judge, launches, trace\n"
             "import gps_sdr_tpu_torch.pipeline\n"
             "m = harness.manifest()\n"
             "[harness.load_reader(x['name']) for x in m['end_to_end'] + "
             "m['per_layer']]\n"
+            "[harness.load_output(f[:-3]) for f in os.listdir("
+            "os.path.join(harness.HERE, 'outputs')) if f.endswith('.py')]\n"
             "print(harness.forbidden_modules())" % ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)

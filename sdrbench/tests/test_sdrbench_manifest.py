@@ -6,10 +6,13 @@ import json
 import math
 import os
 import re
+from types import SimpleNamespace
 
 import pytest
 
 from conftest import ROOT
+
+from sdrbench import harness
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -146,7 +149,13 @@ def test_files_named_by_the_manifest(man):
         with open(os.path.join(bench, "traffic", w["traffic"] + ".json")) \
                 as f:
             mix = json.load(f)
-        assert mix["limits"] and mix["output"] in ("track", "vt")
+        assert mix["limits"]
+        # the mix's output kind is a file, and its tracker one that kind
+        # knows
+        conf = harness.by_name(man["configs"], w["config"])
+        kind = harness.load_output(mix["output"])
+        kind.tracker(SimpleNamespace(mix=mix, cfg=harness.load_json(
+            os.path.join(ROOT, conf["file"]))))
     for m in man["end_to_end"] + man["per_layer"]:
         assert os.path.isfile(os.path.join(bench, "metrics",
                                            m["name"] + ".py")), m["name"]
