@@ -15,6 +15,11 @@ tensors for the geometry and the solves):
   corrected by the estimated bias each epoch (…:462-466,550-554),
 - SV positions/clocks at transmit time, Sagnac, Klobuchar, UNB3 (…:472-505),
 - iterated LS position + DOP, Doppler velocity LS (…:512-514).
+
+Spans (`utils/spans.py`): `ct.gate` (n the record's rows) around the C/N0
+series and the validity gate, `ct.epochs` (n the epochs solved) around
+the epoch loop, and in each epoch `ct.geometry` (transmit times, SV
+states, Sagnac, atmosphere) and `ct.solve` (LS, DOP, velocity LS).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from gps_sdr_tpu_torch.positioning.wls import (doppler_velocity_ls,
                                                iterated_ls_position)
 from gps_sdr_tpu_torch.tracking import TrackRecords
 from gps_sdr_tpu_torch.utils.metrics import cn0_series, gate_mask
+from gps_sdr_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -147,12 +153,13 @@ def run_ct_positioning(records: TrackRecords, cfg: ReceiverConfig,
         "cn0", "valid")}
 
     # measurement-validity gate: per-row post-correlation SNR
-    cn0_rows, gate_rows = cn0_series(records.p_i, records.p_q,
-                                     t_coh_s=pdi * 1e-3, window=20,
-                                     gated=True)
-    mask_thresh = float(getattr(solu, "mask_snr_db", 0.0))
-    valid_rows = (gate_mask(gate_rows, mask_thresh) if mask_thresh > 0
-                  else np.ones_like(gate_rows, bool))
+    with span("ct.gate", T):
+        cn0_rows, gate_rows = cn0_series(records.p_i, records.p_q,
+                                         t_coh_s=pdi * 1e-3, window=20,
+                                         gated=True)
+        mask_thresh = float(getattr(solu, "mask_snr_db", 0.0))
+        valid_rows = (gate_mask(gate_rows, mask_thresh) if mask_thresh > 0
+                      else np.ones_like(gate_rows, bool))
 
     epoch_solver = None
     if mesh is not None and mesh.size > 1:
@@ -164,87 +171,95 @@ def run_ct_positioning(records: TrackRecords, cfg: ReceiverConfig,
                           dtype=torch.float64)
     local_time = np.inf
     epoch = 0
-    while max_epochs is None or epoch < max_epochs:
-        cur = meas_start + meas_step * epoch
-        if cur > sample_end:
-            break
-        # last block whose end sample ≤ current measurement sample
-        idx = np.array([np.searchsorted(abs_s[:, ch], cur, side="right") - 1
-                        for ch in range(n_ch)])
-        if np.any(idx < 0) or np.any(idx >= T - 1):
-            break
-        step_chips = records.code_freq[idx, chan] / fs
-        code_phase = (records.rem_chip[idx, chan]
-                      + step_chips * (cur - abs_s[idx, chan]))
-        transmit_time = (code_phase / sig.code_length / 1000.0
-                         + (ms_elapsed[idx, chan] - (nav1 + sfb1 * 20))
-                         / 1000.0 + tow1)
+    with span("ct.epochs") as epochs_span:
+        while max_epochs is None or epoch < max_epochs:
+            cur = meas_start + meas_step * epoch
+            if cur > sample_end:
+                break
+            # last block whose end sample ≤ current measurement sample
+            idx = np.array([np.searchsorted(abs_s[:, ch], cur,
+                                            side="right") - 1
+                            for ch in range(n_ch)])
+            if np.any(idx < 0) or np.any(idx >= T - 1):
+                break
+            with span("ct.geometry", n_ch):
+                step_chips = records.code_freq[idx, chan] / fs
+                code_phase = (records.rem_chip[idx, chan]
+                              + step_chips * (cur - abs_s[idx, chan]))
+                transmit_time = (code_phase / sig.code_length / 1000.0
+                                 + (ms_elapsed[idx, chan]
+                                    - (nav1 + sfb1 * 20)) / 1000.0 + tow1)
 
-        if np.isinf(local_time):
-            local_time = transmit_time.max() + 75e-3  # assumed travel time
-        pseudorange = (local_time - transmit_time) * C_LIGHT
+                if np.isinf(local_time):
+                    # assumed travel time
+                    local_time = transmit_time.max() + 75e-3
+                pseudorange = (local_time - transmit_time) * C_LIGHT
 
-        sv = sv_pos_vel_clock(eph_struct, transmit_time)
-        prvec = (torch.as_tensor(pseudorange) + sv["clk_m"]
-                 - sv["tgd_s"] * C_LIGHT)
-        sv_pos_rot = earth_rotation_correction(sv["pos"], prvec)
+                sv = sv_pos_vel_clock(eph_struct, transmit_time)
+                prvec = (torch.as_tensor(pseudorange) + sv["clk_m"]
+                         - sv["tgd_s"] * C_LIGHT)
+                sv_pos_rot = earth_rotation_correction(sv["pos"], prvec)
 
-        el, az = elevation_azimuth(sv_pos_rot, est[:3])
-        llh = xyz2llh(est[:3])
-        iono = klobuchar_delay(transmit_time, sv_pos_rot, est[:3],
-                               cmn.iono_alpha, cmn.iono_beta)
-        tropo = torch.abs(tropo_unb3_delay(
-            cmn.day_of_year, torch.rad2deg(llh[0]), llh[2],
-            torch.rad2deg(el)))
-        prvec = prvec - iono - tropo
+                el, az = elevation_azimuth(sv_pos_rot, est[:3])
+                llh = xyz2llh(est[:3])
+                iono = klobuchar_delay(transmit_time, sv_pos_rot, est[:3],
+                                       cmn.iono_alpha, cmn.iono_beta)
+                tropo = torch.abs(tropo_unb3_delay(
+                    cmn.day_of_year, torch.rad2deg(llh[0]), llh[2],
+                    torch.rad2deg(el)))
+                prvec = prvec - iono - tropo
 
-        m = valid_rows[idx, chan]
-        if m.sum() < 4:
-            # not enough healthy channels to gate — keep the fix ungated
-            m = np.ones(n_ch, bool)
-        mt = torch.as_tensor(m)
-        # Doppler observable (carrFreq − IF), as the reference passes it
-        # (trackingCT_POS_updated.m:514)
-        dop_rows = (np.full(n_ch, min(int(idx.max()) + 1, T - 1))
-                    if doppler_at_fire_row else idx)
-        doppler = torch.as_tensor(records.carr_freq[dop_rows, chan]
-                                  - sig.f_if)
-        if epoch_solver is not None:
-            est, dop, vel, clk_drift = epoch_solver(
-                prvec, sv_pos_rot, sv["vel"], doppler, sv["clk_rate_ms"], m,
-                est)
-        else:
-            est, dop = iterated_ls_position(prvec[mt], sv_pos_rot[mt], est)
-            vel, clk_drift, _ = doppler_velocity_ls(
-                est[:3], sv_pos_rot[mt], sv["vel"][mt], doppler[mt],
-                L1_WAVELENGTH, sv["clk_rate_ms"][mt])
+            with span("ct.solve", n_ch):
+                m = valid_rows[idx, chan]
+                if m.sum() < 4:
+                    # not enough healthy channels to gate — keep the fix
+                    # ungated
+                    m = np.ones(n_ch, bool)
+                mt = torch.as_tensor(m)
+                # Doppler observable (carrFreq − IF), as the reference
+                # passes it (trackingCT_POS_updated.m:514)
+                dop_rows = (np.full(n_ch, min(int(idx.max()) + 1, T - 1))
+                            if doppler_at_fire_row else idx)
+                doppler = torch.as_tensor(records.carr_freq[dop_rows, chan]
+                                          - sig.f_if)
+                if epoch_solver is not None:
+                    est, dop, vel, clk_drift = epoch_solver(
+                        prvec, sv_pos_rot, sv["vel"], doppler,
+                        sv["clk_rate_ms"], m, est)
+                else:
+                    est, dop = iterated_ls_position(prvec[mt],
+                                                    sv_pos_rot[mt], est)
+                    vel, clk_drift, _ = doppler_velocity_ls(
+                        est[:3], sv_pos_rot[mt], sv["vel"][mt], doppler[mt],
+                        L1_WAVELENGTH, sv["clk_rate_ms"][mt])
 
-        enu = xyz2enu(est[:3], init_pos)
-        vel_enu = xyz2enu(est[:3] + vel, est[:3])
-        llh_out = xyz2llh(est[:3])
+            enu = xyz2enu(est[:3], init_pos)
+            vel_enu = xyz2enu(est[:3] + vel, est[:3])
+            llh_out = xyz2llh(est[:3])
 
-        out["usr_pos"].append(_np(est[:3]))
-        out["usr_vel"].append(_np(vel))
-        out["enu"].append(_np(enu))
-        out["llh"].append(np.array([np.rad2deg(float(llh_out[0])),
-                                    np.rad2deg(float(llh_out[1])),
-                                    float(llh_out[2])]))
-        out["clk_bias"].append(float(est[3]))
-        out["vel_enu"].append(_np(vel_enu))
-        out["clk_drift"].append(float(clk_drift))
-        out["dop"].append(_np(dop))
-        out["el"].append(np.rad2deg(_np(el)))
-        out["az"].append(np.rad2deg(_np(az)))
-        out["tt"].append(transmit_time)
-        out["pr"].append(pseudorange)
-        out["cpm"].append(code_phase)
-        out["cn0"].append(cn0_rows[idx, chan])
-        out["valid"].append(m)
-        # local clock feedback (trackingCT_POS_updated.m:550-554)
-        local_time = local_time - float(est[3]) / C_LIGHT
-        out["lt"].append(local_time)
-        local_time = local_time + lt_advance
-        epoch += 1
+            out["usr_pos"].append(_np(est[:3]))
+            out["usr_vel"].append(_np(vel))
+            out["enu"].append(_np(enu))
+            out["llh"].append(np.array([np.rad2deg(float(llh_out[0])),
+                                        np.rad2deg(float(llh_out[1])),
+                                        float(llh_out[2])]))
+            out["clk_bias"].append(float(est[3]))
+            out["vel_enu"].append(_np(vel_enu))
+            out["clk_drift"].append(float(clk_drift))
+            out["dop"].append(_np(dop))
+            out["el"].append(np.rad2deg(_np(el)))
+            out["az"].append(np.rad2deg(_np(az)))
+            out["tt"].append(transmit_time)
+            out["pr"].append(pseudorange)
+            out["cpm"].append(code_phase)
+            out["cn0"].append(cn0_rows[idx, chan])
+            out["valid"].append(m)
+            # local clock feedback (trackingCT_POS_updated.m:550-554)
+            local_time = local_time - float(est[3]) / C_LIGHT
+            out["lt"].append(local_time)
+            local_time = local_time + lt_advance
+            epoch += 1
+        epochs_span.n = epoch
 
     return NavSolutions(
         usr_pos=np.asarray(out["usr_pos"]), usr_vel=np.asarray(out["usr_vel"]),

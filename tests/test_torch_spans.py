@@ -384,3 +384,67 @@ def test_receiver_stages_record_their_spans(scene, tmp_path):
     np.testing.assert_array_equal(again.corr, rec.corr)
     assert [(s.name, s.parent) for s in found] == [
         ("stage.load", found[1].id), ("stage.track_for_eph", None)]
+
+
+def test_ct_position_records_its_spans(tmp_path):
+    """`stage.ct_position` holds its tracking chunks, `ct.gate` (n the
+    record's rows) and `ct.epochs` (n the epochs solved, one a fix), and
+    `ct.epochs` one `ct.geometry` and one `ct.solve` an epoch, each solve
+    after its geometry; the records and the fixes equal those of a run
+    without a profiler bit for bit.  Tests/scenario.py's five SVs at
+    2.5 MHz, started 0.3 s before a subframe, the decode made from the
+    synthesizer's bits (tests/test_torch_distributed.py's rule)."""
+    import dataclasses
+    import shutil
+
+    from test_torch_distributed import _decode_artifact
+
+    from gps_sdr_tpu_torch.config import CommonConfig, SolutionConfig
+    from gps_sdr_tpu_torch.io import scenario as sc
+    from gps_sdr_tpu_torch.pipeline import Receiver
+
+    n_ms, chunk = 620, 310
+    cfg = ReceiverConfig(file=FileConfig(name="ctspans", skip_ms=0),
+                         signal=SignalConfig(f_if=F_IF, fs=FS),
+                         solu=SolutionConfig(truth_llh=sc.TRUTH_LLH),
+                         cmn=CommonConfig(multicorr_ct=False))
+    gs = sc.geometry_signal(sc.TOW0 + 0.7, cfg, device="cpu")
+    src = sc.write_capture(str(tmp_path / "capture.bin"), gs, 700)
+    seeded = Receiver(cfg, src, artifact_dir=str(tmp_path / "on"),
+                      device="cpu", mesh=None)
+    seeded._save_pickle(f"eph_{cfg.file.name}.pkl",
+                        _decode_artifact(gs, cfg, seeded.acquisition()))
+    shutil.copytree(tmp_path / "on", tmp_path / "off")
+
+    def stage(where):
+        rx = Receiver(cfg, src, artifact_dir=str(tmp_path / where),
+                      device="cpu", mesh=None)
+        return rx.ct_position(n_ms=n_ms, chunk_ms=chunk)
+
+    (rec, nav), found, _, _, _ = traced(lambda: stage("on"))
+    main = threading.get_ident()
+    (root,) = [s for s in found if s.parent is None and s.thread == main]
+    assert root.name == "stage.ct_position"
+    kids = [s.name for s in sorted((s for s in found if s.parent == root.id),
+                                   key=lambda s: s.start_ns)]
+    assert kids.count("tracking.chunk") == n_ms // chunk
+    assert kids.index("ct.gate") < kids.index("ct.epochs")
+    (gate,) = [s for s in found if s.name == "ct.gate"]
+    (epochs,) = [s for s in found if s.name == "ct.epochs"]
+    assert gate.n == n_ms and gate.parent == root.id
+    assert epochs.n == len(nav.usr_pos) > 0
+    inner = sorted((s for s in found if s.parent == epochs.id),
+                   key=lambda s: s.start_ns)
+    assert [s.name for s in inner] == ["ct.geometry", "ct.solve"] * epochs.n
+    assert all(s.n == nav.valid.shape[1] for s in inner)
+    assert all(epochs.start_ns <= s.start_ns and s.end_ns <= epochs.end_ns
+               for s in inner)
+
+    rec_off, nav_off = stage("off")
+    for f in ttrack._REC_FIELDS:
+        np.testing.assert_array_equal(getattr(rec, f), getattr(rec_off, f),
+                                      err_msg=f)
+    for f in dataclasses.fields(nav):
+        np.testing.assert_array_equal(getattr(nav, f.name),
+                                      getattr(nav_off, f.name),
+                                      err_msg=f.name)
