@@ -256,15 +256,20 @@ class LoopConsts(NamedTuple):
 
     fs: torch.Tensor         # float64 scalar
     sign: torch.Tensor       # float32 scalar
+    two_pi: torch.Tensor     # float32 scalar, the PLL discriminator's 2π
     gains: Tuple[float, float, float, float]
 
     @staticmethod
     def make(spec: ChunkSpec, device) -> "LoopConsts":
         # divisors as device tensors: a true division on every device (CUDA
-        # turns division by a host scalar into a reciprocal multiply)
+        # turns division by a host scalar into a reciprocal multiply), made
+        # once, so that a block copies nothing from the host (a CUDA graph
+        # capture may not)
         return LoopConsts(
             fs=torch.tensor(spec.fs, dtype=torch.float64, device=device),
             sign=torch.tensor(spec.sign, dtype=torch.float32, device=device),
+            two_pi=torch.tensor(2.0 * math.pi, dtype=torch.float32,
+                                device=device),
             gains=spec.loop_gains())
 
 
@@ -300,7 +305,7 @@ def block_step(st, spec: ChunkSpec, k: LoopConsts, bank):
                                  corr[:, il, 0], corr[:, il, 1])
     dll = loop_filter_step(st.dll_nco, st.dll_last, code_err, dll_a, dll_b)
     code_freq = spec.code_freq_basis + spec.dll_freq_sign * dll
-    carr_err = pll_discriminator(corr[:, ip, 0], corr[:, ip, 1])
+    carr_err = pll_discriminator(corr[:, ip, 0], corr[:, ip, 1], k.two_pi)
     pll = loop_filter_step(st.pll_nco, st.pll_last, carr_err, pll_a, pll_b)
     carr_freq = st.carr_freq_basis + pll
 

@@ -78,7 +78,7 @@ from gps_sdr_tpu_torch.ops.loops import (cn0_moment_estimator,
                                          pll_discriminator)
 from gps_sdr_tpu_torch.ops.track_chunk import _wrap32
 from gps_sdr_tpu_torch.tracking import Q32, TrackRecords, chip_tables
-from gps_sdr_tpu_torch.utils.device import resolve_device
+from gps_sdr_tpu_torch.utils.device import capture_graph, resolve_device
 from gps_sdr_tpu_torch.utils.spans import span
 
 
@@ -566,23 +566,11 @@ def _commit(dst: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
 
 
 def _capture(fn, bank: BankPlan) -> Tuple[torch.cuda.CUDAGraph, int]:
-    """`fn()` captured into a CUDA graph on a side stream (nothing runs),
-    with the launches of `bank` it holds (the span `vt.capture`'s `n`).
-    The capture draws its temporaries from a pool of its own; a failure
-    raises."""
-    dev = bank.device
+    """`fn()` captured into a CUDA graph (`capture_graph`: nothing runs),
+    with the launches of `bank` it holds (the span `vt.capture`'s `n`)."""
     with span("vt.capture") as sp:
-        graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream(dev)
         before = bank.captured
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                fn()
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = capture_graph(fn, bank.device)
         sp.n = held = bank.captured - before
     return graph, held
 

@@ -8,7 +8,9 @@ for all channels: the CUDA kernel on the card, the plain PyTorch version on
 the CPU.  Longer blocks (the 10 ms phases of the reference's schedules) go
 block by block through `track_scan`: each channel's window is cut out of
 the chunk on the device, `ops.corr_bank.correlator_bank_windows`
-correlates it, and the loops close in float64 tensors on the device.
+correlates it, and the loops close in float64 tensors on the device.  On
+the card `run_tracking` replays a chunk's blocks from one CUDA graph
+(`ScanGraph`), captured once a call over a fixed sample buffer.
 
 The loop state is kept exact as in the JAX scan (gps_sdr_tpu/tracking.py):
 the carrier phase is an int32 Q32 accumulator that wraps exactly mod one
@@ -49,7 +51,7 @@ from gps_sdr_tpu_torch.ops.cacode import ca_code_table
 from gps_sdr_tpu_torch.ops.loops import loop_coefficients
 from gps_sdr_tpu_torch.ops.track_chunk import (ChunkSpec, raise_on_fault,
                                                track_chunk)
-from gps_sdr_tpu_torch.utils.device import resolve_device
+from gps_sdr_tpu_torch.utils.device import capture_graph, resolve_device
 from gps_sdr_tpu_torch.utils.spans import span
 
 Q32 = 4294967296.0  # 2**32
@@ -258,6 +260,49 @@ def chip_tables(prns, device=None) -> torch.Tensor:
                            dtype=torch.float32, device=device)
 
 
+def _scan_blocks(raw: torch.Tensor, chunk_start, state: TrackState,
+                 plan: corr_bank.WindowsPlan, k: tc.LoopConsts,
+                 spec: ChunkSpec, n_steps: int):
+    """`n_steps` blocks of `track_scan` from `state`, with nothing read back
+    and no check of the windows: (records, end state).  `chunk_start` is an
+    int or a 0-d int64 tensor on the device."""
+    cut = corr_bank.WindowCutter(raw, spec.blk)
+
+    def bank(b: tc.BlockNCO) -> torch.Tensor:
+        return plan(cut(b.ptr - chunk_start), *(t.contiguous() for t in (
+            b.rem_chip, b.code_freq, b.phase, b.carr_fp, b.num)))
+
+    st = state._replace(phase_fp=state.phase_fp.to(torch.int64))
+    rows = []
+    for _ in range(n_steps):
+        st, row, _ = tc.block_step(st, spec, k, bank)
+        rows.append(row)
+    rec = tc.stack_rows(rows, plan.fault, state.ptr.shape[0], len(spec.taps))
+    return rec, st._replace(phase_fp=st.phase_fp.to(torch.int32))
+
+
+def _scan_plan(chips: torch.Tensor, spec: ChunkSpec):
+    """The bank's plan, with a new fault flag, and the loops' constants:
+    made once for a scan, outside any capture."""
+    dev = chips.device
+    grid = tc.BlockGrid.make(spec.blk, dev) if dev.type == "cpu" else None
+    tap_fp = torch.as_tensor(spec.tap_fp(), device=dev)
+    plan = corr_bank.WindowsPlan(chips, tap_fp, spec.fs, spec.blk,
+                                 spec.remove_dc, corr_bank.new_fault(dev),
+                                 grid)
+    return plan, tc.LoopConsts.make(spec, dev)
+
+
+def _flag_windows(rec: dict, chunk_start: int, blk: int, length: int
+                  ) -> None:
+    """Raise the records' fault for a window that left the chunk's
+    `length` samples, from the records' offsets (the cutter clamps)."""
+    if rec["num_sample"].shape[0]:
+        off = rec["absolute_sample"] - rec["num_sample"] - chunk_start
+        corr_bank.raise_flag(
+            rec["fault"], ((off < 0) | (off + blk > length)).any(dim=0))
+
+
 def track_scan(raw: torch.Tensor, chunk_start: int, state: TrackState,
                chips: torch.Tensor, spec: ChunkSpec, n_steps: int):
     """Track all channels for `n_steps` blocks of one chunk, block by block.
@@ -276,33 +321,135 @@ def track_scan(raw: torch.Tensor, chunk_start: int, state: TrackState,
     with the records.
     """
     tc.check_inputs(raw, state, chips, spec, n_steps, chunk_start)
-    dev = raw.device
-    n, blk = state.ptr.shape[0], spec.blk
-    tap_fp = torch.as_tensor(spec.tap_fp(), device=dev)
-    grid = tc.BlockGrid.make(blk, dev) if dev.type == "cpu" else None
-    k = tc.LoopConsts.make(spec, dev)
-    fault = corr_bank.new_fault(dev)
-    cut = corr_bank.WindowCutter(raw, blk)
-    # the bank's checks, tables and scratch, once for the scan
-    plan = corr_bank.WindowsPlan(chips, tap_fp, spec.fs, blk, spec.remove_dc,
-                                 fault, grid)
+    plan, k = _scan_plan(chips, spec)
+    rec, st = _scan_blocks(raw, chunk_start, state, plan, k, spec, n_steps)
+    _flag_windows(rec, chunk_start, spec.blk, raw.shape[0])
+    return rec, st
 
-    def bank(b: tc.BlockNCO) -> torch.Tensor:
-        return plan(cut(b.ptr - chunk_start), *(t.contiguous() for t in (
-            b.rem_chip, b.code_freq, b.phase, b.carr_fp, b.num)))
 
-    st = state._replace(phase_fp=state.phase_fp.to(torch.int64))
-    rows = []
-    for _ in range(n_steps):
-        st, row, _ = tc.block_step(st, spec, k, bank)
-        rows.append(row)
-    rec = tc.stack_rows(rows, fault, n, len(spec.taps))
-    if rows:
-        # every window's offset, from the records: the cutter clamps
-        off = rec["absolute_sample"] - rec["num_sample"] - chunk_start
-        corr_bank.raise_flag(
-            fault, ((off < 0) | (off + blk > raw.shape[0])).any(dim=0))
-    return rec, st._replace(phase_fp=st.phase_fp.to(torch.int32))
+class ScanGraph:
+    """`track_scan` of `n_steps` blocks over fixed tensors: a sample buffer
+    of `capacity` rows, `chunk_start` as a device scalar, the state, and
+    the records the scan leaves.  On a CUDA device the scan is captured
+    once into a CUDA graph (`capture_graph`), and a call replays it over
+    the chunk it is given; elsewhere a call runs it eagerly over the same
+    tensors.  Either way a call gives `track_scan`'s records and end state
+    bit for bit.
+
+    A call copies the chunk into the buffer's head, writes `chunk_start`
+    and, unless it is the state the last call returned, the state in, then
+    runs the scan, which writes its end state back into the fixed state.
+    The records and that state are the object's own: the next call
+    overwrites them.  The cutter clamps a window at the buffer's capacity;
+    the window check that follows the scan, outside the graph, holds the
+    records to the chunk's own length, as `track_scan` does.  A replay adds
+    the bank launches its graph holds (`held`) to
+    `correlator_bank_windows.launches`, as a replayed VT step does.
+    """
+
+    def __init__(self, dtype: torch.dtype, capacity: int, state: TrackState,
+                 chips: torch.Tensor, spec: ChunkSpec, n_steps: int):
+        dev = chips.device
+        self.capacity, self.chips = capacity, chips
+        self.spec, self.n_steps = spec, n_steps
+        self.buf = torch.zeros((capacity, 2), dtype=dtype, device=dev)
+        self.start = torch.zeros((), dtype=torch.int64, device=dev)
+        self.state = TrackState(*(t.clone() for t in state))
+        self.plan, self.k = _scan_plan(chips, spec)
+        self.graph, self.held, self.rec = None, 0, None
+        if dev.type == "cuda":
+            before = self.plan.captured
+            self.graph = capture_graph(self._scan, dev)
+            self.held = self.plan.captured - before
+
+    def _scan(self) -> None:
+        self.plan.fault.zero_()
+        self.rec, st = _scan_blocks(self.buf, self.start, self.state,
+                                    self.plan, self.k, self.spec,
+                                    self.n_steps)
+        for dst, src in zip(self.state, st):
+            dst.copy_(src)
+
+    def __call__(self, raw: torch.Tensor, chunk_start: int,
+                 state: TrackState):
+        tc.check_inputs(raw, state, self.chips, self.spec, self.n_steps,
+                        chunk_start)
+        if raw.dtype != self.buf.dtype or raw.shape[0] > self.capacity:
+            raise ValueError(
+                f"chunk {tuple(raw.shape)} {raw.dtype} does not fit the "
+                f"scan's {self.capacity}-sample {self.buf.dtype} buffer")
+        self.buf[:raw.shape[0]].copy_(raw)
+        self.start.fill_(chunk_start)
+        if state is not self.state:
+            for dst, src in zip(self.state, state):
+                dst.copy_(src)
+        if self.graph is None:
+            self._scan()
+        else:
+            self.graph.replay()
+            corr_bank.correlator_bank_windows.launches += self.held
+        _flag_windows(self.rec, chunk_start, self.spec.blk, raw.shape[0])
+        return self.rec, self.state
+
+
+def uses_scan_graph(device: torch.device, pdi_ms: int, staged: bool,
+                    sharded: bool, n_blocks: int, blocks_per_chunk: int
+                    ) -> bool:
+    """Whether `run_tracking` runs its blocks through a `ScanGraph`: blocks
+    of `track_scan` (longer than 2 ms) on a CUDA device, read chunk by
+    chunk (not from a resident capture), not sharded over a mesh (its
+    collectives cannot be captured), over more than one chunk (a single
+    chunk cannot pay for a capture)."""
+    return (device.type == "cuda" and pdi_ms > 2 and staged and not sharded
+            and n_blocks > blocks_per_chunk)
+
+
+def scan_route(n_steps: int, length: int,
+               graph: Optional[Tuple[int, int]]) -> str:
+    """How `run_tracking` runs a chunk of `n_steps` blocks whose window is
+    `length` samples on the graph route, given the `(n_steps,
+    capacity)` of the `ScanGraph` it holds (None before the first):
+    "capture" a first graph, or a new one where the window outgrew the
+    buffer; "replay" the one it holds; or "eager" (`track_scan`) for a
+    chunk of another number of blocks."""
+    if graph is not None and n_steps != graph[0]:
+        return "eager"
+    if graph is None or length > graph[1]:
+        return "capture"
+    return "replay"
+
+
+def scan_capacity(length: int, samples_per_ms: int) -> int:
+    """A `ScanGraph`'s buffer for a chunk window of `length` samples, with
+    the read-ahead's margin of 4 ms for the pointers' drift."""
+    return length + 4 * samples_per_ms
+
+
+class _GraphedScan:
+    """`run_tracking`'s tracker for the blocks of `track_scan` on the card,
+    staged and unsharded, over several chunks: one `ScanGraph`, captured on
+    the first chunk and replayed on each chunk after it, as `scan_route`
+    says (spans `tracking.capture` and `tracking.replay`, n the blocks)."""
+
+    def __init__(self, samples_per_ms: int):
+        self.samples_per_ms = samples_per_ms
+        self.graph: Optional[ScanGraph] = None
+
+    def __call__(self, raw, chunk_start, state, chips, spec, n_steps):
+        g = self.graph
+        route = scan_route(n_steps, raw.shape[0],
+                           None if g is None else (g.n_steps, g.capacity))
+        if route == "eager":
+            return track_scan(raw, chunk_start, state, chips, spec, n_steps)
+        if route == "capture":
+            self.graph = None       # the old graph's pool goes first
+            with span("tracking.capture", n_steps):
+                self.graph = ScanGraph(
+                    raw.dtype,
+                    scan_capacity(raw.shape[0], self.samples_per_ms),
+                    state, chips, spec, n_steps)
+        with span("tracking.replay", n_steps):
+            return self.graph(raw, chunk_start, state)
 
 
 def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
@@ -321,6 +468,14 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
     current pointers alone (pointer spread + the next chunk's full window
     + 2·S of drift margin on each side), so it is served without a second
     read.
+
+    On the card, blocks longer than 2 ms of a staged, unsharded call of
+    more than one chunk run through one `ScanGraph`: `track_scan` captured
+    into a CUDA graph on the first chunk and replayed on every chunk of
+    the same number of blocks, so the host launches a chunk's 100 blocks
+    as one graph, not ~60 kernels a block; the records are the eager
+    scan's bit for bit.  The CPU, a mesh, a resident capture, a single chunk and a chunk
+    of another number of blocks run eagerly.
 
     `resident`: the whole capture already on the state's device
     (`io.ifdata.upload_capture`).  Every chunk then reads it in place, from
@@ -368,6 +523,9 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
         state, chips = ptrack.shard_channels(mesh, state, chips)
         tracker = ptrack.sharded_tracker(mesh, tracker, n_real)
     staged = resident is None
+    if uses_scan_graph(device, params.pdi_ms, staged, use_mesh,
+                       n_blocks_total, blocks_per_chunk):
+        tracker = _GraphedScan(S)
     if staged:
         prefetcher = ChunkPrefetcher(source.read_iq_values)
         stager = DeviceStager(device)

@@ -1,7 +1,9 @@
 """The port's 10 ms coherent schedules against the JAX package, on the CPU:
 the bank over windows (`ops/corr_bank.correlator_bank_windows`), the
 per-block tracker (`tracking.track_scan`), the routing of `run_tracking`,
-and `Receiver.track_for_eph_reference`.
+and `Receiver.track_for_eph_reference`; and `run_tracking`'s graph route
+(`tracking.ScanGraph`, one CUDA graph a chunk on the card) against
+`track_scan` chunk by chunk, on port-only captures (the port's generator).
 
 One small capture serves the bank and tracker tests (4.092 MHz, PRNs
 7 / 21 / 13, 560 ms, int8, made by the JAX generator from a seed); the
@@ -16,10 +18,12 @@ a machine without JAX.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from gps_sdr_tpu_torch import convert
 from gps_sdr_tpu_torch import tracking as ttrack
@@ -29,6 +33,7 @@ from gps_sdr_tpu_torch.ops import track_chunk as tc
 from gps_sdr_tpu_torch.pipeline import Receiver as TReceiver
 from gps_sdr_tpu_torch.tracking import TrackParams as TTrackParams
 from gps_sdr_tpu_torch.tracking import chip_tables
+from gps_sdr_tpu_torch.utils import spans
 
 torch.set_num_threads(2)
 
@@ -793,3 +798,249 @@ def _check_windows_kernel(dev):
         out, fault = cb.correlator_bank_windows(
             dwin, *[a.to(dev) for a in long.values()], *tail, True)
         assert int(fault[0]) == 4 and not out[3].any()
+
+
+# ------------------------------------ (9) one CUDA graph a chunk (ScanGraph)
+
+G_FS = 2.5e6
+G_SVS = [dict(prn=7, amplitude=3.0, doppler_hz=1234.5,
+              code_delay_samples=800.0),
+         dict(prn=21, amplitude=2.5, doppler_hz=-2500.25,
+              code_delay_samples=1345.0),
+         dict(prn=13, amplitude=2.8, doppler_hz=310.0,
+              code_delay_samples=2100.5)]
+G_LOCK_MS, G_CHUNK_MS, G_MS = 60, 50, 170   # 10 ms chunks of 5, 5, 5, 2
+# IF, data precision (2: int16, DC removal), TrackParams maker, its keywords
+G_CASES = {"int8_if_3taps": (0.6e6, 1, "epl", dict(negate_iq=True)),
+           "int16_dc": (0.0, 2, "epl", {}),
+           "taps25": (0.6e6, 1, "pos_multicorr", {})}
+_G_SCENES = {}
+
+
+def _graph_scene(case):
+    """A port-only capture for `case` (the port's generator at 2.5 MHz,
+    three SVs; int16 ×40 with DC 230 − 95j), the NCO state after
+    G_LOCK_MS ms of 1 ms tracking on the CPU, and the 10 ms params."""
+    if case in _G_SCENES:
+        return _G_SCENES[case]
+    from gps_sdr_tpu_torch.config import (FileConfig, ReceiverConfig,
+                                          SignalConfig)
+    from gps_sdr_tpu_torch.io.synthetic import (SyntheticSV,
+                                                generate_if_samples,
+                                                quantize_iq)
+    f_if, precision, kind, kw = G_CASES[case]
+    cfg = ReceiverConfig(
+        file=FileConfig(name="graph", skip_ms=0, data_precision=precision),
+        signal=SignalConfig(f_if=f_if, fs=G_FS))
+    iq = generate_if_samples(cfg, [SyntheticSV(**sv) for sv in G_SVS],
+                             G_LOCK_MS + G_MS + 20, noise_std=4.0, seed=7,
+                             device="cpu")
+    if precision == 2:
+        values = quantize_iq(iq * 40 + complex(230, -95), np.int16)
+    else:
+        values = quantize_iq(iq)
+    sig, S = cfg.signal, cfg.signal.samples_per_ms
+    delays, fine = [], []
+    for sv in G_SVS:
+        f_code = sig.code_freq_basis * (1 + sv["doppler_hz"] / sig.fc)
+        epoch = sv["code_delay_samples"] % (1023 / f_code * G_FS)
+        delays.append(int(round((S - epoch) % S)))
+        fine.append(f_if + sv["doppler_hz"] + 3.0)
+    src = TSource.from_array(values, cfg.file)
+    prns = [sv["prn"] for sv in G_SVS]
+    _, locked = ttrack.run_tracking(
+        src, cfg, prns, ttrack.init_track_state(cfg, delays, fine, "cpu"),
+        TTrackParams.epl(cfg), G_LOCK_MS)
+    params = _params(cfg, kind, pdi_ms=10, **kw)
+    _G_SCENES[case] = scene = (cfg, src, prns, locked, params)
+    return scene
+
+
+def _to(state, dev):
+    return ttrack.TrackState(*(t.to(dev) for t in state))
+
+
+def _window(src, spec, state, nb, dev, extra=0):
+    """The chunk `run_tracking` cuts for `nb` blocks from `state` (with
+    `extra` samples more), on `dev`: (raw, chunk_start)."""
+    lo, hi = int(state.ptr.min()), int(state.ptr.max())
+    vals = src.read_iq_values(lo, hi - lo + spec.chunk_samples(nb) + extra)
+    return torch.from_numpy(vals).to(dev), lo
+
+
+def _eager_chunks(src, spec, state, chips, n_blocks, per):
+    """`track_scan` chunk by chunk over the windows `run_tracking` cuts:
+    each chunk's records (on the host) and the end state."""
+    parts, left = [], n_blocks
+    while left:
+        nb = min(per, left)
+        raw, lo = _window(src, spec, state, nb, state.ptr.device)
+        rec, state = ttrack.track_scan(raw, lo, state, chips, spec, nb)
+        tc.raise_on_fault(rec)
+        parts.append({f: v.cpu() for f, v in rec.items()})
+        left -= nb
+    return parts, state
+
+
+def test_scan_graph_route_rule():
+    """The graph route's rule as pure helpers: only blocks of `track_scan`
+    on a CUDA device, staged, unsharded, over more than one chunk; the
+    first full chunk is captured into a buffer of its window plus 4 ms,
+    replayed while chunks of its number of blocks fit, captured again for
+    a larger window, and a chunk of another number of blocks runs
+    eagerly."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert ttrack.uses_scan_graph(cuda, 10, True, False, 4000, 100)
+    for dev, pdi, staged, sharded, n, per in (
+            (cpu, 10, True, False, 4000, 100),      # the CPU
+            (cuda, 1, True, False, 40000, 1000),    # track_chunk
+            (cuda, 2, True, False, 500, 500 // 2),  # one chunk of 2 ms
+            (cuda, 10, False, False, 4000, 100),    # resident capture
+            (cuda, 10, True, True, 4000, 100),      # a mesh
+            (cuda, 10, True, False, 100, 100),      # a single chunk
+            (cuda, 10, True, False, 60, 100)):
+        assert not ttrack.uses_scan_graph(dev, pdi, staged, sharded, n, per)
+    S, first = 2500, 27_000
+    cap = ttrack.scan_capacity(first, S)
+    assert cap == first + 4 * S
+    assert ttrack.scan_route(5, first, None) == "capture"
+    assert ttrack.scan_route(5, first, (5, cap)) == "replay"
+    assert ttrack.scan_route(5, cap, (5, cap)) == "replay"
+    assert ttrack.scan_route(5, cap + 1, (5, cap)) == "capture"
+    assert ttrack.scan_route(2, first, (5, cap)) == "eager"
+    assert ttrack.scan_route(2, cap + 1, (5, cap)) == "eager"
+
+
+@pytest.mark.parametrize("case", list(G_CASES))
+def test_scan_graph_equals_track_scan(case):
+    """`ScanGraph` run over its fixed tensors (eagerly here: the capture
+    needs the card) against `track_scan` on each chunk: every record field
+    and the end state equal, chunk after chunk, with the chunk at the
+    buffer's head, the tail stale, `chunk_start` a device scalar and the
+    end state written back.  A code NCO 30 % slow on channel 1 raises its
+    flag as `track_scan` does, and the next call starts from a cleared
+    flag."""
+    cfg, src, prns, st, params = _graph_scene(case)
+    spec = params.chunk_spec(cfg)
+    chips = chip_tables(prns, "cpu")
+    nb = G_CHUNK_MS // params.pdi_ms
+    raw, lo = _window(src, spec, st, nb, "cpu")
+    graph = ttrack.ScanGraph(raw.dtype, ttrack.scan_capacity(
+        raw.shape[0], cfg.signal.samples_per_ms), st, chips, spec, nb)
+    assert graph.graph is None and graph.held == 0
+    st_e = st_g = st
+    for _ in range(3):
+        raw, lo = _window(src, spec, st_e, nb, "cpu")
+        rec_e, st_e = ttrack.track_scan(raw, lo, st_e, chips, spec, nb)
+        rec_g, st_g = graph(raw, lo, st_g)
+        assert st_g is graph.state and raw.shape[0] < graph.capacity
+        assert rec_g.keys() == rec_e.keys()
+        for f in rec_e:
+            assert torch.equal(rec_g[f], rec_e[f]), f
+        for f, a, b in zip(st_e._fields, st_g, st_e):
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+        assert int(rec_g["fault"][0]) == 0
+    slow = st_e._replace(code_freq=st_e.code_freq * torch.tensor(
+        [1.0, 0.7, 1.0], dtype=torch.float64))
+    raw, lo = _window(src, spec, slow, nb, "cpu")
+    rec_e, _ = ttrack.track_scan(raw, lo, slow, chips, spec, nb)
+    rec_g, _ = graph(raw, lo, slow)
+    assert int(rec_g["fault"][0]) == int(rec_e["fault"][0]) == 2
+    with pytest.raises(RuntimeError, match="channel 1"):
+        tc.raise_on_fault(rec_g)
+    raw, lo = _window(src, spec, st_e, nb, "cpu")
+    assert int(graph(raw, lo, st_e)[0]["fault"][0]) == 0
+    with pytest.raises(ValueError, match="does not fit"):
+        graph(*_window(src, spec, st_e, nb, "cpu", extra=graph.capacity),
+              st_e)
+
+
+def test_graphed_scan_captures_once_a_call():
+    """`run_tracking`'s graph-route tracker, driven here over the chunks
+    of a call (on the CPU its `ScanGraph` runs eagerly): one
+    `tracking.capture` of the first chunk's blocks, a `tracking.replay`
+    for each full chunk, the short last chunk eager through `track_scan`,
+    a window past the buffer captured again; records and end state those
+    of `track_scan` chunk by chunk."""
+    cfg, src, prns, st, params = _graph_scene("int8_if_3taps")
+    spec = params.chunk_spec(cfg)
+    chips = chip_tables(prns, "cpu")
+    per, n_blocks = G_CHUNK_MS // 10, G_MS // 10
+    want, _ = _eager_chunks(src, spec, st, chips, n_blocks, per)
+    scan = ttrack._GraphedScan(cfg.signal.samples_per_ms)
+    calls = {"eager": 0}
+    real = ttrack.track_scan
+
+    def counted(*a):
+        calls["eager"] += 1
+        return real(*a)
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        t0 = time.time_ns()
+        got, left, state = [], n_blocks, st
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ttrack, "track_scan", counted)
+            while left:
+                nb = min(per, left)
+                raw, lo = _window(src, spec, state, nb, "cpu")
+                rec, state = scan(raw, lo, state, chips, spec, nb)
+                got.append({f: v.clone() for f, v in rec.items()})
+                left -= nb
+            first = scan.graph
+            # a window larger than the buffer: captured again
+            raw, lo = _window(src, spec, st, per, "cpu",
+                              extra=first.capacity)
+            scan(raw, lo, st, chips, spec, per)
+        found = spans.recorded(t0, time.time_ns())
+    assert scan.graph is not first and calls == {"eager": 1}
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        for f in w:
+            assert torch.equal(g[f], w[f]), f
+    caps = [s.n for s in found if s.name == "tracking.capture"]
+    reps = [s.n for s in found if s.name == "tracking.replay"]
+    assert caps == [per, per] and reps == [per] * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(G_CASES))
+def test_cuda_run_tracking_replays_track_scan(case):
+    """`run_tracking` at pdi 10 on the card over 3 full chunks and a short
+    one, its graph route against `track_scan` called chunk by chunk over
+    the same windows: every record field and the end state equal bit for
+    bit; one capture of a chunk's blocks, three replays, the short chunk
+    eager; `correlator_bank_windows.launches` adds up to the eager
+    count, the replays adding what the graph holds; a code NCO driven
+    past the block window still raises through `raise_on_fault`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    cfg, src, prns, st, params = _graph_scene(case)
+    st = _to(st, dev)
+    spec = params.chunk_spec(cfg)
+    per, n_blocks = G_CHUNK_MS // 10, G_MS // 10
+    before = cb.correlator_bank_windows.launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        t0 = time.time_ns()
+        rec, end = ttrack.run_tracking(src, cfg, prns, st, params, G_MS,
+                                       chunk_ms=G_CHUNK_MS)
+        found = spans.recorded(t0, time.time_ns())
+    graphed = cb.correlator_bank_windows.launches - before
+    before = cb.correlator_bank_windows.launches
+    parts, end_e = _eager_chunks(src, spec, st, chip_tables(prns, dev),
+                                 n_blocks, per)
+    eager = cb.correlator_bank_windows.launches - before
+    assert graphed == eager == n_blocks
+    for f in ttrack._REC_FIELDS:
+        want = torch.cat([p[f] for p in parts])
+        got = torch.from_numpy(getattr(rec, f))
+        assert got.dtype == want.dtype and torch.equal(got, want), f
+    for f, a, b in zip(end_e._fields, end, end_e):
+        assert a.device == b.device and torch.equal(a, b), f
+    assert [s.n for s in found if s.name == "tracking.capture"] == [per]
+    assert [s.n for s in found if s.name == "tracking.replay"] == [per] * 3
+    slow = st._replace(code_freq=st.code_freq * torch.tensor(
+        [1.0, 1.0, 0.7], dtype=torch.float64, device=dev))
+    with pytest.raises(RuntimeError, match="channel 2"):
+        ttrack.run_tracking(src, cfg, prns, slow, params, G_MS,
+                            chunk_ms=G_CHUNK_MS)

@@ -23,6 +23,7 @@ from gps_sdr_tpu_torch.config import (FileConfig, ReceiverConfig,
 from gps_sdr_tpu_torch.io.ifdata import ChunkPrefetcher, IFSampleSource
 from gps_sdr_tpu_torch.io.synthetic import (SyntheticSV, generate_if_samples,
                                             quantize_iq)
+from gps_sdr_tpu_torch.parallel.mesh import Mesh
 from gps_sdr_tpu_torch.utils import spans
 
 torch.set_num_threads(2)
@@ -99,7 +100,15 @@ def test_run_tracking_records_the_tree(scene, pdi_ms, n_ms):
     (rec, _), found, _, t0, t1 = traced(lambda: track(scene, pdi_ms, n_ms))
     blocks = n_ms // pdi_ms
     assert rec.num_sample.shape[0] == blocks
+    assert_chunk_tree(found, blocks, pdi_ms, t0, t1)
+
+
+def assert_chunk_tree(found, blocks, pdi_ms, t0, t1):
+    """The tree of `test_run_tracking_records_the_tree`, with no span of
+    the card's graph route (`tracking.capture`, `tracking.replay`)."""
     ids, main = by_id(found), threading.get_ident()
+    assert not [s for s in found
+                if s.name in ("tracking.capture", "tracking.replay")]
     for s in found:
         assert t0 <= s.start_ns <= s.end_ns <= t1
     chunks = [s for s in found if s.name == "tracking.chunk"]
@@ -124,6 +133,55 @@ def test_run_tracking_records_the_tree(scene, pdi_ms, n_ms):
     assert all(r.n >= f.n for r, f in zip(ahead, fetches[1:]))
     stages = [s for s in found if s.name == "io.stage"]
     assert all(st.n == 2 * f.n for st, f in zip(stages, fetches))  # int8 IQ
+
+
+class TwoRanks(Mesh):
+    """A mesh of two ranks in one process, this one rank 0: every gather
+    hands back this rank's part twice (the sharded route's spans, not its
+    results)."""
+
+    def _gather(self, t):
+        x = t.contiguous()
+        return [x, x]
+
+
+def test_mesh_route_records_no_graph_span(scene):
+    """`run_tracking` over a mesh at pdi 10, the route the card keeps
+    eager (its collectives cannot be captured): the chunk tree of the
+    unsharded route, and no `tracking.capture` or `tracking.replay`."""
+    mesh = TwoRanks(group=None, rank=0, size=2, device=torch.device("cpu"),
+                    backend="gloo")
+    params = ttrack.TrackParams.epl(scene["cfg"], pdi_ms=10)
+    (rec, _), found, _, t0, t1 = traced(lambda: ttrack.run_tracking(
+        scene["src"], scene["cfg"], scene["prns"], scene["state"], params,
+        3 * CHUNK_MS, chunk_ms=CHUNK_MS, mesh=mesh))
+    assert rec.num_sample.shape == (3 * CHUNK_MS // 10, 2)
+    assert_chunk_tree(found, 3 * CHUNK_MS // 10, 10, t0, t1)
+
+
+@pytest.mark.gpu
+def test_graph_route_spans_on_the_card(scene):
+    """On the card, pdi 10 over three chunks: the same chunk tree, and
+    inside each `tracking.scan` one `tracking.replay` of its blocks, the
+    first chunk's preceded by the one `tracking.capture`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    state = ttrack.TrackState(*(t.cuda() for t in scene["state"]))
+    params = ttrack.TrackParams.epl(scene["cfg"], pdi_ms=10)
+    (rec, _), found, _, t0, t1 = traced(lambda: ttrack.run_tracking(
+        scene["src"], scene["cfg"], scene["prns"], state, params,
+        3 * CHUNK_MS, chunk_ms=CHUNK_MS))
+    assert rec.num_sample.shape == (3 * CHUNK_MS // 10, 2)
+    graph = [s for s in found
+             if s.name in ("tracking.capture", "tracking.replay")]
+    assert_chunk_tree([s for s in found if s not in graph],
+                      3 * CHUNK_MS // 10, 10, t0, t1)
+    scans = [s for s in found if s.name == "tracking.scan"]
+    kids = [[(k.name, k.n) for k in sorted(graph, key=lambda k: k.start_ns)
+             if k.parent == sc.id] for sc in scans]
+    per = CHUNK_MS // 10
+    assert kids == [[("tracking.capture", per), ("tracking.replay", per)],
+                    [("tracking.replay", per)], [("tracking.replay", per)]]
 
 
 @pytest.fixture
