@@ -440,7 +440,7 @@ def chunk_of(work: dict, kind: str, n_steps: int, dev: torch.device) -> tuple:
     spec = getattr(TrackParams, kind)(cfg).chunk_spec(cfg)
     state = init_track_state(cfg, work["code_delays"], work["fine"], dev)
     start = int(state.ptr.min())
-    length = int(state.ptr.max()) - start + spec.chunk_samples(n_steps)
+    length = int(state.ptr.max()) - start + spec.window.need(n_steps)
     raw = work["stager"].stage(work["src"].read_iq_values(start, length))
     return raw, start, state, spec
 
@@ -976,7 +976,7 @@ def phase_both_trackers(dev: torch.device, shared: dict) -> dict:
     st = shared["early"]
     spec = TrackParams.epl(cfg, pdi_ms=10, negate_iq=True).chunk_spec(cfg)
     start = int(st.ptr.min())
-    length = int(st.ptr.max()) - start + spec.chunk_samples(SCAN_BLOCKS)
+    length = int(st.ptr.max()) - start + spec.window.need(SCAN_BLOCKS)
     raw = shared["stager"].stage(src.read_iq_values(start, length))
 
     def scan():
@@ -2003,7 +2003,7 @@ def _urban_kernels(dev: torch.device, ucfg: ReceiverConfig, src,
         start = int(state.ptr.min())
         raw = stager.stage(src.read_iq_values(
             start, int(state.ptr.max()) - start
-            + spec.chunk_samples(n_steps)))
+            + spec.window.need(n_steps)))
         out, end = tc.track_chunk(raw, start, state, chips, spec, n_steps)
         ref, ref_end = tc.track_chunk_reference(raw, start, state, chips,
                                                 spec, n_steps)

@@ -15,7 +15,8 @@ to the card from a pinned buffer with `non_blocking=True`, and the cast
 to float happens on the device (inside the tracking kernel).  A stage whose
 channels lie far apart in the capture (time-segmented tracking) holds the
 whole capture on the card instead (`upload_capture`), uploaded once through
-a pinned buffer of bounded size.
+a pinned buffer of bounded size.  `ChunkFeed` is the one place a tracking
+call's chunks are windowed, read ahead and staged.
 """
 
 from __future__ import annotations
@@ -243,6 +244,60 @@ class DeviceStager:
             out = pinned.to(self.device, non_blocking=True)
             self._ring.sent()
             return out
+
+
+# the read-ahead's margin each side of the next chunk's window, for the
+# pointers' code-Doppler drift over a chunk [ms]
+DRIFT_MARGIN_MS = 2
+
+
+class ChunkFeed:
+    """The chunks of one tracking call on its device: the one place they
+    are windowed, read ahead and staged.
+
+    `next(ptr, nb, nb_next)` gives `(raw, chunk_start)`: the samples from
+    the first of the pointers `ptr` to the last plus `window.need(nb)`
+    (`ops.track_chunk.ChunkWindow`), fetched through a `ChunkPrefetcher`
+    and staged through a `DeviceStager`.  The fetch submits the read of
+    the next chunk, `nb_next` blocks (none when 0), from the current
+    pointers alone and `DRIFT_MARGIN_MS` wider each side than it needs,
+    so only a call's first fetch reads inline.  With `resident` (the
+    capture on the device, `upload_capture`) every chunk is that tensor
+    from sample 0, with no read and no staging.  `slack`, the two margins,
+    is the room a `tracking.ScanGraph` buffer adds to its first window."""
+
+    def __init__(self, source: IFSampleSource, device, window,
+                 resident: Optional[torch.Tensor] = None):
+        device = torch.device(device)
+        if resident is not None and (resident.device != device
+                                     or resident.shape[0] != source.n_samples):
+            raise ValueError(
+                f"resident capture {tuple(resident.shape)} on "
+                f"{resident.device} is not the {source.n_samples}-sample "
+                f"capture on {device}")
+        self.window, self.resident = window, resident
+        self._margin = DRIFT_MARGIN_MS * window.samples_per_ms
+        self.slack = 2 * self._margin
+        if resident is None:
+            self._prefetcher = ChunkPrefetcher(source.read_iq_values)
+            self._stager = DeviceStager(device)
+
+    def next(self, ptr: torch.Tensor, nb: int, nb_next: int
+             ) -> Tuple[torch.Tensor, int]:
+        if self.resident is not None:
+            return self.resident, 0
+        ptrs = ptr.cpu()
+        lo, hi = int(ptrs.min()), int(ptrs.max())
+        then = ((lo + nb * self.window.step - self._margin,
+                 hi - lo + self.window.need(nb_next) + self.slack)
+                if nb_next > 0 else None)
+        values = self._prefetcher.fetch(lo, hi - lo + self.window.need(nb),
+                                        then)
+        return self._stager.stage(values), lo
+
+    def close(self) -> None:
+        if self.resident is None:
+            self._prefetcher.close()
 
 
 def write_if_file(path: str, iq: np.ndarray, file_cfg: FileConfig) -> None:

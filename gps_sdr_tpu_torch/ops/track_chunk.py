@@ -65,6 +65,31 @@ _STATE_F = ("rem_chip", "code_freq", "carr_freq", "carr_freq_basis",
             "dll_nco", "dll_last", "pll_nco", "pll_last")
 
 
+class ChunkWindow(NamedTuple):
+    """Blocks of `pdi_ms` at `samples_per_ms`: the one rule for a block's
+    window and a chunk's need (`ChunkSpec`, the VT scan,
+    `io.ifdata.ChunkFeed`)."""
+
+    samples_per_ms: int
+    pdi_ms: int
+
+    @property
+    def step(self) -> int:              # a block's nominal samples, pdi·S
+        return self.pdi_ms * self.samples_per_ms
+
+    @property
+    def blk(self) -> int:
+        """The JAX scan's fixed block window (tracking.py:548): pdi·S + 256
+        rounded up to 128 samples."""
+        return -(-(self.step + 256) // 128) * 128
+
+    def need(self, n_steps: int) -> int:
+        """Samples a chunk must hold past its furthest channel pointer:
+        n_steps nominal blocks plus one block window and 64 samples of
+        slack for the code-Doppler drift (tracking.py:629)."""
+        return n_steps * self.step + self.blk + 64
+
+
 class ChunkSpec(NamedTuple):
     """Static configuration of one tracking segment, as the kernel takes it."""
 
@@ -86,20 +111,8 @@ class ChunkSpec(NamedTuple):
         return CODE_LENGTH * self.pdi_ms
 
     @property
-    def samples_per_ms(self) -> int:
-        return int(math.ceil(self.fs * 1e-3))
-
-    @property
-    def blk(self) -> int:
-        """The JAX scan's fixed block window (tracking.py:548): pdi·S + 256
-        rounded up to 128 samples."""
-        return -(-(self.samples_per_ms * self.pdi_ms + 256) // 128) * 128
-
-    def chunk_samples(self, n_steps: int) -> int:
-        """Samples a chunk must hold past its furthest channel pointer:
-        n_steps nominal blocks plus one block window and 64 samples of
-        slack for the code-Doppler drift (tracking.py:629)."""
-        return n_steps * self.pdi_ms * self.samples_per_ms + self.blk + 64
+    def window(self) -> ChunkWindow:
+        return ChunkWindow(int(math.ceil(self.fs * 1e-3)), self.pdi_ms)
 
     def loop_gains(self) -> Tuple[float, float, float, float]:
         """(tau2/tau1, dt/tau1) of the DLL, then of the PLL:
@@ -154,7 +167,7 @@ def check_inputs(raw: torch.Tensor, state, chips: torch.Tensor,
             raise ValueError(f"state.{f} must be ({n},) on {raw.device}")
     offs = state.ptr - int(chunk_start)
     lo, hi = int(offs.min()), int(offs.max())
-    need = hi + spec.chunk_samples(n_steps)
+    need = hi + spec.window.need(n_steps)
     if lo < 0 or raw.shape[0] < need:
         raise ValueError(
             f"chunk of {raw.shape[0]} samples does not cover the channels' "
@@ -351,7 +364,7 @@ def track_chunk_reference(raw: torch.Tensor, chunk_start: int, state,
     L = raw.shape[0]
     n = state.ptr.shape[0]
     tap_fp = torch.as_tensor(spec.tap_fp(), device=dev)
-    grid = BlockGrid.make(spec.blk, dev)
+    grid = BlockGrid.make(spec.window.blk, dev)
     k = LoopConsts.make(spec, dev)
 
     def bank(b: BlockNCO) -> torch.Tensor:
@@ -489,7 +502,7 @@ def track_chunk(raw: torch.Tensor, chunk_start: int, state,
 
     Arguments and result as `track_chunk_reference`.  A CPU `raw` runs the
     plain version; a CUDA `raw` launches the kernel (one launch) or raises.
-    The chunk must hold `spec.chunk_samples(n_steps)` samples past the
+    The chunk must hold `spec.window.need(n_steps)` samples past the
     furthest channel pointer; a block window that still leaves it (a
     diverged loop) sets `records["fault"]`, which `raise_on_fault` turns
     into an error when the records are read back.

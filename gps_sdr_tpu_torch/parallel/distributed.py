@@ -159,12 +159,13 @@ def _vt_fixture(n_ch: int, device):
     fixture at the small front end), the same on every rank: (cfg,
     params, state, eph, prns, interleaved int8 samples, n_steps, usr)."""
     from gps_sdr_tpu_torch.geo.ephemeris import Ephemeris
+    from gps_sdr_tpu_torch.ops.track_chunk import ChunkWindow
     from gps_sdr_tpu_torch.receiver.vt import VTParams, VTState
 
     cfg = _small_cfg()
     S = cfg.signal.samples_per_ms
-    blk = -(-(S + 256) // 128) * 128
     params = VTParams()
+    blk = ChunkWindow(S, params.pdi_ms).blk
     rng = np.random.default_rng(3)
     f64 = dict(dtype=torch.float64, device=device)
 
@@ -472,7 +473,6 @@ def _leg_ingest(mesh, job) -> dict:
     D, halo, n_ms = spec["segments"], spec["halo_ms"], spec["n_ms"]
     n = len(prns)
     seg_ms = -(-n_ms // D)
-    S = cfg.signal.samples_per_ms
     params = TrackParams.epl(cfg)
     t0 = time.perf_counter()
     state = segmented_initial_state(cfg, spec["delays"], spec["fine"], D,
@@ -482,8 +482,7 @@ def _leg_ingest(mesh, job) -> dict:
     s_lo, s_hi = bounds[mesh.rank]
     ptrs = state.ptr.numpy().reshape(D, n)
     my_ptr_lo = int(ptrs[s_lo:s_hi].min())
-    blk = params.chunk_spec(cfg).blk
-    need = (seg_ms + halo + 2) * S + blk + 64
+    need = params.chunk_spec(cfg).window.need(seg_ms + halo + 2)
     bps = cfg.file.bytes_per_sample
     file_bytes = os.path.getsize(capture)
     byte_lo = my_ptr_lo * bps
@@ -697,7 +696,8 @@ def _leg_scaling(mesh, job) -> dict:
     cfg = _small_cfg()
     spec = TrackParams.epl(cfg).chunk_spec(cfg)
     raw = torch.as_tensor(rng.integers(
-        -64, 64, size=((steps + 2) * cfg.signal.samples_per_ms + spec.blk, 2)
+        -64, 64,
+        size=((steps + 2) * cfg.signal.samples_per_ms + spec.window.blk, 2)
     ).astype(np.int8), device=dev)
     state = init_track_state(cfg, np.zeros(n, np.int64),
                              np.full(n, cfg.signal.f_if + 1000.0), dev)

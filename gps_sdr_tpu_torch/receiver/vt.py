@@ -68,15 +68,14 @@ from gps_sdr_tpu_torch.geo.coords import f64, xyz2enu, xyz2llh
 from gps_sdr_tpu_torch.geo.earth import earth_rotation_correction
 from gps_sdr_tpu_torch.geo.ephemeris import (MU_EARTH, Ephemeris,
                                              sv_pos_vel_clock)
-from gps_sdr_tpu_torch.io.ifdata import (ChunkPrefetcher, DeviceStager,
-                                         IFSampleSource)
+from gps_sdr_tpu_torch.io.ifdata import ChunkFeed, IFSampleSource
 from gps_sdr_tpu_torch.ops.corr_bank import (BankPlan, correlator_bank,
                                              new_fault, raise_on_fault,
                                              tap_offsets_fp)
 from gps_sdr_tpu_torch.ops.loops import (cn0_moment_estimator,
                                          loop_coefficients,
                                          pll_discriminator)
-from gps_sdr_tpu_torch.ops.track_chunk import _wrap32
+from gps_sdr_tpu_torch.ops.track_chunk import ChunkWindow, _wrap32
 from gps_sdr_tpu_torch.tracking import Q32, TrackRecords, chip_tables
 from gps_sdr_tpu_torch.utils.device import capture_graph, resolve_device
 from gps_sdr_tpu_torch.utils.spans import span
@@ -818,9 +817,8 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
     """Host loop of the VT scan: chunk the capture, collect the records.
 
     Runs on the device of `state`; `eph_struct` must be there too.  The
-    next chunk's host read is submitted as the current chunk's fetch
-    returns (ChunkPrefetcher), its window from the current pointers, so it
-    runs while this chunk is staged and its `vt_scan` issued.
+    chunks come from an `io.ifdata.ChunkFeed`, the next chunk's read
+    submitted before this chunk is staged and its `vt_scan` issued.
 
     `mesh` (a `parallel.mesh.Mesh`) shards the channel axis over its ranks
     (`parallel/vt.py`; the JAX package's gps_sdr_tpu/receiver/vt.py:740-805):
@@ -833,9 +831,8 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
     if len(prns) == 0:
         raise ValueError("no channels to track (empty PRN list)")
     device = state.ptr.device
-    S = cfg.signal.samples_per_ms
     fs = float(cfg.signal.fs)
-    blk = -(-(S * params.pdi_ms + 256) // 128) * 128
+    window = ChunkWindow(cfg.signal.samples_per_ms, params.pdi_ms)
     chips = chip_tables(prns, device)
     n_real = len(prns)
     scan = vt_scan
@@ -847,8 +844,7 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
         state, chips, eph_struct = pvt.shard_vt_state(mesh, state, chips,
                                                       eph_struct)
         scan = pvt.sharded_vt_scan(mesh, n_real)
-    prefetcher = ChunkPrefetcher(source.read_iq_values)
-    stager = DeviceStager(device)
+    feed = ChunkFeed(source, device, window)
     recs: Dict[str, list] = {}
     done = 0
     try:
@@ -856,20 +852,13 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
             nb = min(chunk_ms, n_ms - done)
             nb_next = min(chunk_ms, n_ms - done - nb)
             with span("vt.chunk", nb):
-                ptrs = state.ptr.cpu()
-                ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
-                length = ((ptr_max - ptr_min) + nb * params.pdi_ms * S
-                          + blk + 64)
-                then = ((ptr_min + nb * params.pdi_ms * S - 2 * S,
-                         (ptr_max - ptr_min) + nb_next * params.pdi_ms * S
-                         + blk + 64 + 4 * S)
-                        if nb_next > 0 else None)
-                raw = stager.stage(prefetcher.fetch(ptr_min, length, then))
+                raw, start = feed.next(state.ptr, nb, nb_next)
                 with span("vt.scan", nb):
                     state, rec = scan(
-                        raw, ptr_min, state, chips, eph_struct,
+                        raw, start, state, chips, eph_struct,
                         cfg.cmn.iono_alpha, cfg.cmn.iono_beta, params, nb, fs,
-                        blk, float(cfg.signal.f_if), float(cfg.signal.fc),
+                        window.blk, float(cfg.signal.f_if),
+                        float(cfg.signal.fc),
                         float(cfg.signal.code_freq_basis),
                         int(cfg.cmn.day_of_year))
                 with span("vt.records", nb):
@@ -878,7 +867,7 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
                         recs.setdefault(k, []).append(v.cpu().numpy())
             done += nb
     finally:
-        prefetcher.close()
+        feed.close()
     if use_mesh:
         state = pvt.gather_vt_state(mesh, state, n_real)
     with span("vt.solutions", n_ms):

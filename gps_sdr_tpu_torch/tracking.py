@@ -43,8 +43,7 @@ import numpy as np
 import torch
 
 from gps_sdr_tpu_torch.config import ReceiverConfig
-from gps_sdr_tpu_torch.io.ifdata import (ChunkPrefetcher, DeviceStager,
-                                         IFSampleSource)
+from gps_sdr_tpu_torch.io.ifdata import ChunkFeed, IFSampleSource
 from gps_sdr_tpu_torch.ops import corr_bank
 from gps_sdr_tpu_torch.ops import track_chunk as tc
 from gps_sdr_tpu_torch.ops.cacode import ca_code_table
@@ -266,7 +265,7 @@ def _scan_blocks(raw: torch.Tensor, chunk_start, state: TrackState,
     """`n_steps` blocks of `track_scan` from `state`, with nothing read back
     and no check of the windows: (records, end state).  `chunk_start` is an
     int or a 0-d int64 tensor on the device."""
-    cut = corr_bank.WindowCutter(raw, spec.blk)
+    cut = corr_bank.WindowCutter(raw, spec.window.blk)
 
     def bank(b: tc.BlockNCO) -> torch.Tensor:
         return plan(cut(b.ptr - chunk_start), *(t.contiguous() for t in (
@@ -284,10 +283,10 @@ def _scan_blocks(raw: torch.Tensor, chunk_start, state: TrackState,
 def _scan_plan(chips: torch.Tensor, spec: ChunkSpec):
     """The bank's plan, with a new fault flag, and the loops' constants:
     made once for a scan, outside any capture."""
-    dev = chips.device
-    grid = tc.BlockGrid.make(spec.blk, dev) if dev.type == "cpu" else None
+    dev, blk = chips.device, spec.window.blk
+    grid = tc.BlockGrid.make(blk, dev) if dev.type == "cpu" else None
     tap_fp = torch.as_tensor(spec.tap_fp(), device=dev)
-    plan = corr_bank.WindowsPlan(chips, tap_fp, spec.fs, spec.blk,
+    plan = corr_bank.WindowsPlan(chips, tap_fp, spec.fs, blk,
                                  spec.remove_dc, corr_bank.new_fault(dev),
                                  grid)
     return plan, tc.LoopConsts.make(spec, dev)
@@ -308,7 +307,7 @@ def track_scan(raw: torch.Tensor, chunk_start: int, state: TrackState,
     """Track all channels for `n_steps` blocks of one chunk, block by block.
 
     Arguments and result as `ops.track_chunk.track_chunk`.  Per block each
-    channel's window of `spec.blk` samples is cut at ptr − chunk_start
+    channel's window of `spec.window.blk` samples is cut at ptr − chunk_start
     (`corr_bank.WindowCutter`), `correlator_bank_windows`, prepared once
     for the scan (`corr_bank.WindowsPlan`), correlates the windows (the
     CUDA kernel for a chunk on the card, its plain version on the CPU) and `block_step` closes the loops: the arithmetic of
@@ -323,40 +322,46 @@ def track_scan(raw: torch.Tensor, chunk_start: int, state: TrackState,
     tc.check_inputs(raw, state, chips, spec, n_steps, chunk_start)
     plan, k = _scan_plan(chips, spec)
     rec, st = _scan_blocks(raw, chunk_start, state, plan, k, spec, n_steps)
-    _flag_windows(rec, chunk_start, spec.blk, raw.shape[0])
+    _flag_windows(rec, chunk_start, spec.window.blk, raw.shape[0])
     return rec, st
 
 
 class ScanGraph:
-    """`track_scan` of `n_steps` blocks over fixed tensors: a sample buffer
-    of `capacity` rows, `chunk_start` as a device scalar, the state, and
-    the records the scan leaves.  On a CUDA device the scan is captured
-    once into a CUDA graph (`capture_graph`), and a call replays it over
-    the chunk it is given; elsewhere a call runs it eagerly over the same
-    tensors.  Either way a call gives `track_scan`'s records and end state
-    bit for bit.
+    """`run_tracking`'s tracker on the graph route (`uses_scan_graph`),
+    called as `track_scan` is and giving its records and end state bit
+    for bit.  A chunk's blocks are scanned over fixed tensors (a sample
+    buffer of the first window plus `slack` samples, `chunk_start` as a
+    device scalar, the state, the records), captured into a CUDA graph
+    (span `tracking.capture`, n the blocks) on the first chunk and again
+    when a window outgrows the buffer, and replayed per chunk
+    (`tracking.replay`); a chunk of another number of blocks (a short last
+    one) runs `track_scan` eagerly.  Off a CUDA device a replay runs the
+    scan eagerly over the same tensors.
 
-    A call copies the chunk into the buffer's head, writes `chunk_start`
-    and, unless it is the state the last call returned, the state in, then
-    runs the scan, which writes its end state back into the fixed state.
-    The records and that state are the object's own: the next call
-    overwrites them.  The cutter clamps a window at the buffer's capacity;
-    the window check that follows the scan, outside the graph, holds the
-    records to the chunk's own length, as `track_scan` does.  A replay adds
-    the bank launches its graph holds (`held`) to
-    `correlator_bank_windows.launches`, as a replayed VT step does.
-    """
+    A replay copies the chunk to the buffer's head and the state in
+    (unless it is the one the last call returned); the scan writes its end
+    state back.  Records and state are the object's own, overwritten by
+    the next call.  The window check after the scan, outside the graph,
+    holds the records to the chunk's own length, as `track_scan` does.  A
+    replay adds the bank launches its graph holds (`held`) to
+    `correlator_bank_windows.launches`, as a replayed VT step does."""
 
-    def __init__(self, dtype: torch.dtype, capacity: int, state: TrackState,
-                 chips: torch.Tensor, spec: ChunkSpec, n_steps: int):
+    def __init__(self, slack: int):
+        self.slack = slack
+        self.n_steps = self.capacity = self.graph = None
+
+    def _capture(self, raw: torch.Tensor, state: TrackState,
+                 chips: torch.Tensor, spec: ChunkSpec, n_steps: int) -> None:
+        self.graph = self.rec = self.buf = None    # the old ones go first
         dev = chips.device
-        self.capacity, self.chips = capacity, chips
-        self.spec, self.n_steps = spec, n_steps
-        self.buf = torch.zeros((capacity, 2), dtype=dtype, device=dev)
+        self.capacity = raw.shape[0] + self.slack
+        self.chips, self.spec, self.n_steps = chips, spec, n_steps
+        self.buf = torch.zeros((self.capacity, 2), dtype=raw.dtype,
+                               device=dev)
         self.start = torch.zeros((), dtype=torch.int64, device=dev)
         self.state = TrackState(*(t.clone() for t in state))
         self.plan, self.k = _scan_plan(chips, spec)
-        self.graph, self.held, self.rec = None, 0, None
+        self.held = 0
         if dev.type == "cuda":
             before = self.plan.captured
             self.graph = capture_graph(self._scan, dev)
@@ -370,14 +375,10 @@ class ScanGraph:
         for dst, src in zip(self.state, st):
             dst.copy_(src)
 
-    def __call__(self, raw: torch.Tensor, chunk_start: int,
-                 state: TrackState):
+    def _replay(self, raw: torch.Tensor, chunk_start: int,
+                state: TrackState):
         tc.check_inputs(raw, state, self.chips, self.spec, self.n_steps,
                         chunk_start)
-        if raw.dtype != self.buf.dtype or raw.shape[0] > self.capacity:
-            raise ValueError(
-                f"chunk {tuple(raw.shape)} {raw.dtype} does not fit the "
-                f"scan's {self.capacity}-sample {self.buf.dtype} buffer")
         self.buf[:raw.shape[0]].copy_(raw)
         self.start.fill_(chunk_start)
         if state is not self.state:
@@ -388,8 +389,20 @@ class ScanGraph:
         else:
             self.graph.replay()
             corr_bank.correlator_bank_windows.launches += self.held
-        _flag_windows(self.rec, chunk_start, self.spec.blk, raw.shape[0])
+        _flag_windows(self.rec, chunk_start, self.spec.window.blk,
+                      raw.shape[0])
         return self.rec, self.state
+
+    def __call__(self, raw: torch.Tensor, chunk_start: int,
+                 state: TrackState, chips: torch.Tensor, spec: ChunkSpec,
+                 n_steps: int):
+        if self.n_steps is not None and n_steps != self.n_steps:
+            return track_scan(raw, chunk_start, state, chips, spec, n_steps)
+        if self.n_steps is None or raw.shape[0] > self.capacity:
+            with span("tracking.capture", n_steps):
+                self._capture(raw, state, chips, spec, n_steps)
+        with span("tracking.replay", n_steps):
+            return self._replay(raw, chunk_start, state)
 
 
 def uses_scan_graph(device: torch.device, pdi_ms: int, staged: bool,
@@ -404,54 +417,6 @@ def uses_scan_graph(device: torch.device, pdi_ms: int, staged: bool,
             and n_blocks > blocks_per_chunk)
 
 
-def scan_route(n_steps: int, length: int,
-               graph: Optional[Tuple[int, int]]) -> str:
-    """How `run_tracking` runs a chunk of `n_steps` blocks whose window is
-    `length` samples on the graph route, given the `(n_steps,
-    capacity)` of the `ScanGraph` it holds (None before the first):
-    "capture" a first graph, or a new one where the window outgrew the
-    buffer; "replay" the one it holds; or "eager" (`track_scan`) for a
-    chunk of another number of blocks."""
-    if graph is not None and n_steps != graph[0]:
-        return "eager"
-    if graph is None or length > graph[1]:
-        return "capture"
-    return "replay"
-
-
-def scan_capacity(length: int, samples_per_ms: int) -> int:
-    """A `ScanGraph`'s buffer for a chunk window of `length` samples, with
-    the read-ahead's margin of 4 ms for the pointers' drift."""
-    return length + 4 * samples_per_ms
-
-
-class _GraphedScan:
-    """`run_tracking`'s tracker for the blocks of `track_scan` on the card,
-    staged and unsharded, over several chunks: one `ScanGraph`, captured on
-    the first chunk and replayed on each chunk after it, as `scan_route`
-    says (spans `tracking.capture` and `tracking.replay`, n the blocks)."""
-
-    def __init__(self, samples_per_ms: int):
-        self.samples_per_ms = samples_per_ms
-        self.graph: Optional[ScanGraph] = None
-
-    def __call__(self, raw, chunk_start, state, chips, spec, n_steps):
-        g = self.graph
-        route = scan_route(n_steps, raw.shape[0],
-                           None if g is None else (g.n_steps, g.capacity))
-        if route == "eager":
-            return track_scan(raw, chunk_start, state, chips, spec, n_steps)
-        if route == "capture":
-            self.graph = None       # the old graph's pool goes first
-            with span("tracking.capture", n_steps):
-                self.graph = ScanGraph(
-                    raw.dtype,
-                    scan_capacity(raw.shape[0], self.samples_per_ms),
-                    state, chips, spec, n_steps)
-        with span("tracking.replay", n_steps):
-            return self.graph(raw, chunk_start, state)
-
-
 def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
                  state: TrackState, params: TrackParams, n_ms: int,
                  chunk_ms: int = 1000,
@@ -462,20 +427,17 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
     blocks of up to 2 ms, `track_scan` for longer ones
     (gps_sdr_tpu/tracking.py:550-554 routes them the same way).
 
-    The next chunk's host read is submitted as the current chunk's fetch
-    returns (ChunkPrefetcher), so it runs while this chunk is staged, its
-    tracker issued and its records read back; its window comes from the
-    current pointers alone (pointer spread + the next chunk's full window
-    + 2·S of drift margin on each side), so it is served without a second
-    read.
+    The chunks come from an `io.ifdata.ChunkFeed`: each chunk's window
+    from the channels' pointers, the next chunk's read submitted before
+    this chunk is staged, its tracker issued and its records read back.
 
     On the card, blocks longer than 2 ms of a staged, unsharded call of
     more than one chunk run through one `ScanGraph`: `track_scan` captured
     into a CUDA graph on the first chunk and replayed on every chunk of
     the same number of blocks, so the host launches a chunk's 100 blocks
     as one graph, not ~60 kernels a block; the records are the eager
-    scan's bit for bit.  The CPU, a mesh, a resident capture, a single chunk and a chunk
-    of another number of blocks run eagerly.
+    scan's bit for bit.  The CPU, a mesh, a resident capture, a single
+    chunk and a chunk of another number of blocks run eagerly.
 
     `resident`: the whole capture already on the state's device
     (`io.ifdata.upload_capture`).  Every chunk then reads it in place, from
@@ -500,11 +462,6 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
         raise ValueError(
             f"capture too short: tracking {n_ms} ms needs ~{need} samples, "
             f"file has {source.n_samples}")
-    if resident is not None and (resident.device != device
-                                 or resident.shape[0] != source.n_samples):
-        raise ValueError(
-            f"resident capture {tuple(resident.shape)} on {resident.device} "
-            f"is not the {source.n_samples}-sample capture on {device}")
     n_blocks_total = n_ms // params.pdi_ms
     blocks_per_chunk = max(1, chunk_ms // params.pdi_ms)
     tracker, tracker_span = ((track_scan, "tracking.scan")
@@ -522,13 +479,10 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
         state, chips, _ = ptrack.pad_channels(state, chips, mesh.size)
         state, chips = ptrack.shard_channels(mesh, state, chips)
         tracker = ptrack.sharded_tracker(mesh, tracker, n_real)
-    staged = resident is None
-    if uses_scan_graph(device, params.pdi_ms, staged, use_mesh,
+    feed = ChunkFeed(source, device, spec.window, resident)
+    if uses_scan_graph(device, params.pdi_ms, resident is None, use_mesh,
                        n_blocks_total, blocks_per_chunk):
-        tracker = _GraphedScan(S)
-    if staged:
-        prefetcher = ChunkPrefetcher(source.read_iq_values)
-        stager = DeviceStager(device)
+        tracker = ScanGraph(feed.slack)
     parts = []
     done = 0
     try:
@@ -536,21 +490,9 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
             nb = min(blocks_per_chunk, n_blocks_total - done)
             nb_next = min(blocks_per_chunk, n_blocks_total - done - nb)
             with span("tracking.chunk", nb):
-                if staged:
-                    ptrs = state.ptr.cpu()
-                    ptr_min, ptr_max = int(ptrs.min()), int(ptrs.max())
-                    length = (ptr_max - ptr_min) + spec.chunk_samples(nb)
-                    # pointers advance ~nb·pdi·S with tens of samples of
-                    # code-Doppler drift; 2·S of margin each side covers it
-                    then = ((ptr_min + nb * params.pdi_ms * S - 2 * S,
-                             (ptr_max - ptr_min)
-                             + spec.chunk_samples(nb_next) + 4 * S)
-                            if nb_next > 0 else None)
-                    raw = stager.stage(prefetcher.fetch(ptr_min, length, then))
-                else:
-                    raw, ptr_min = resident, 0
+                raw, start = feed.next(state.ptr, nb, nb_next)
                 with span(tracker_span, nb):
-                    rec, state = tracker(raw, ptr_min, state, chips, spec, nb)
+                    rec, state = tracker(raw, start, state, chips, spec, nb)
                 with span("tracking.records", nb):
                     raise_on_fault(rec)
                     parts.append(TrackRecords(
@@ -559,8 +501,7 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
                         i_late=params.i_late))
             done += nb
     finally:
-        if staged:
-            prefetcher.close()
+        feed.close()
     if use_mesh:
         state = ptrack.gather_state(mesh, state, n_real)
     return TrackRecords.concatenate(parts), state

@@ -27,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gps_sdr_tpu_torch import convert
 from gps_sdr_tpu_torch import tracking as ttrack
+from gps_sdr_tpu_torch.io.ifdata import ChunkFeed
 from gps_sdr_tpu_torch.io.ifdata import IFSampleSource as TSource
 from gps_sdr_tpu_torch.ops import corr_bank as cb
 from gps_sdr_tpu_torch.ops import track_chunk as tc
@@ -84,7 +85,7 @@ def _chunk(scene, spec, n_steps):
     locked state."""
     st = scene["locked"]
     start = int(st.ptr.min())
-    n = int(st.ptr.max()) - start + spec.chunk_samples(n_steps)
+    n = int(st.ptr.max()) - start + spec.window.need(n_steps)
     vals = scene["vals"].reshape(-1, 2)
     assert start + n <= len(vals)
     return torch.from_numpy(vals[start:start + n].copy()), start
@@ -110,10 +111,10 @@ def _window_inputs(scene, params, int16=False):
     n_exact = (spec.n_chips - rem) / (code_freq / FS)
     num = (np.ceil(n_exact) if spec.ceil_rounding
            else np.round(n_exact)).astype(np.int64)
-    win = cb.cut_windows(raw, st.ptr - start, spec.blk)
+    win = cb.cut_windows(raw, st.ptr - start, spec.window.blk)
     return dict(win=win, raw=raw, off=st.ptr - start, rem=rem,
                 code_freq=code_freq, carr_freq=st.carr_freq.numpy(),
-                phase_fp=st.phase_fp.numpy(), num=num, blk=spec.blk,
+                phase_fp=st.phase_fp.numpy(), num=num, blk=spec.window.blk,
                 taps=np.asarray(params.taps, np.float64),
                 n_chips=spec.n_chips)
 
@@ -337,7 +338,7 @@ def test_track_scan_matches_jax_nco_10ms(scene):
         jnp.asarray(raw.numpy(), jnp.float32), jnp.int64(start), jstate,
         chips, TrackParams.epl(cfg, pdi_ms=10, negate_iq=True,
                                replica="nco"),
-        n_steps, float(FS), spec.blk, float(cfg.signal.code_freq_basis))
+        n_steps, float(FS), spec.window.blk, float(cfg.signal.code_freq_basis))
     j = {f: np.asarray(v) for f, v in jrec.items()}
     t = {f: v.numpy() for f, v in trec.items()}
     np.testing.assert_array_equal(t["num_sample"], j["num_sample"])
@@ -861,11 +862,17 @@ def _to(state, dev):
 
 
 def _window(src, spec, state, nb, dev, extra=0):
-    """The chunk `run_tracking` cuts for `nb` blocks from `state` (with
-    `extra` samples more), on `dev`: (raw, chunk_start)."""
-    lo, hi = int(state.ptr.min()), int(state.ptr.max())
-    vals = src.read_iq_values(lo, hi - lo + spec.chunk_samples(nb) + extra)
-    return torch.from_numpy(vals).to(dev), lo
+    """The chunk `run_tracking`'s feed cuts for `nb` blocks from `state`
+    (with `extra` samples more), on `dev`: (raw, chunk_start)."""
+    feed = ChunkFeed(src, dev, spec.window)
+    try:
+        raw, lo = feed.next(state.ptr, nb, 0)
+    finally:
+        feed.close()
+    if extra:
+        raw = torch.from_numpy(
+            src.read_iq_values(lo, raw.shape[0] + extra)).to(dev)
+    return raw, lo
 
 
 def _eager_chunks(src, spec, state, chips, n_blocks, per):
@@ -883,12 +890,13 @@ def _eager_chunks(src, spec, state, chips, n_blocks, per):
 
 
 def test_scan_graph_route_rule():
-    """The graph route's rule as pure helpers: only blocks of `track_scan`
-    on a CUDA device, staged, unsharded, over more than one chunk; the
-    first full chunk is captured into a buffer of its window plus 4 ms,
-    replayed while chunks of its number of blocks fit, captured again for
-    a larger window, and a chunk of another number of blocks runs
-    eagerly."""
+    """The graph route's rule: `uses_scan_graph` takes only blocks of
+    `track_scan` on a CUDA device, staged, unsharded, over more than one
+    chunk; a `ScanGraph` captures its first chunk into a buffer of the
+    window plus its slack, replays while chunks of its number of blocks
+    fit, captures again for a larger window, and runs a chunk of another
+    number of blocks through `track_scan` (the replay and the eager scan
+    stubbed here to record the decision)."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert ttrack.uses_scan_graph(cuda, 10, True, False, 4000, 100)
     for dev, pdi, staged, sharded, n, per in (
@@ -900,64 +908,94 @@ def test_scan_graph_route_rule():
             (cuda, 10, True, False, 100, 100),      # a single chunk
             (cuda, 10, True, False, 60, 100)):
         assert not ttrack.uses_scan_graph(dev, pdi, staged, sharded, n, per)
-    S, first = 2500, 27_000
-    cap = ttrack.scan_capacity(first, S)
-    assert cap == first + 4 * S
-    assert ttrack.scan_route(5, first, None) == "capture"
-    assert ttrack.scan_route(5, first, (5, cap)) == "replay"
-    assert ttrack.scan_route(5, cap, (5, cap)) == "replay"
-    assert ttrack.scan_route(5, cap + 1, (5, cap)) == "capture"
-    assert ttrack.scan_route(2, first, (5, cap)) == "eager"
-    assert ttrack.scan_route(2, cap + 1, (5, cap)) == "eager"
+    cfg, _, prns, st, params = _graph_scene("int8_if_3taps")
+    spec, chips = params.chunk_spec(cfg), chip_tables(prns, "cpu")
+    S, first = cfg.signal.samples_per_ms, 27_000
+    graph = ttrack.ScanGraph(4 * S)
+    assert graph.capacity is None and graph.n_steps is None
+    seen = []
+    capture = graph._capture
+
+    def chunk(length, n_steps):
+        graph(torch.zeros((length, 2), dtype=torch.int8), 0, st, chips,
+              spec, n_steps)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graph, "_capture", lambda raw, *a: (
+            seen.append(("capture", raw.shape[0])), capture(raw, *a)))
+        mp.setattr(graph, "_replay", lambda raw, *a: seen.append(
+            ("replay", raw.shape[0])))
+        mp.setattr(ttrack, "track_scan", lambda raw, *a: seen.append(
+            ("eager", raw.shape[0])))
+        chunk(first, 5)
+        cap = graph.capacity
+        assert cap == first + 4 * S and graph.n_steps == 5
+        for length, n_steps in ((first, 5), (cap, 5), (cap + 1, 5),
+                                (first, 2), (3 * cap, 2)):
+            chunk(length, n_steps)
+    assert seen == [("capture", first), ("replay", first),
+                    ("replay", first), ("replay", cap),
+                    ("capture", cap + 1), ("replay", cap + 1),
+                    ("eager", first), ("eager", 3 * cap)]
+    assert graph.capacity == cap + 1 + 4 * S and graph.n_steps == 5
 
 
 @pytest.mark.parametrize("case", list(G_CASES))
 def test_scan_graph_equals_track_scan(case):
     """`ScanGraph` run over its fixed tensors (eagerly here: the capture
-    needs the card) against `track_scan` on each chunk: every record field
-    and the end state equal, chunk after chunk, with the chunk at the
-    buffer's head, the tail stale, `chunk_start` a device scalar and the
-    end state written back.  A code NCO 30 % slow on channel 1 raises its
-    flag as `track_scan` does, and the next call starts from a cleared
-    flag."""
+    needs the card) against `track_scan` on each chunk the feed cuts:
+    every record field and the end state equal, chunk after chunk, with
+    the chunk at the buffer's head, the tail stale, `chunk_start` a
+    device scalar and the end state written back.  A code NCO 30 % slow
+    on channel 1 raises its flag as `track_scan` does, and the next call
+    starts from a cleared flag; a window past the buffer is captured
+    again into a larger one, with the same records."""
     cfg, src, prns, st, params = _graph_scene(case)
     spec = params.chunk_spec(cfg)
     chips = chip_tables(prns, "cpu")
     nb = G_CHUNK_MS // params.pdi_ms
-    raw, lo = _window(src, spec, st, nb, "cpu")
-    graph = ttrack.ScanGraph(raw.dtype, ttrack.scan_capacity(
-        raw.shape[0], cfg.signal.samples_per_ms), st, chips, spec, nb)
-    assert graph.graph is None and graph.held == 0
+    feed = ChunkFeed(src, "cpu", spec.window)
+    graph = ttrack.ScanGraph(feed.slack)
     st_e = st_g = st
-    for _ in range(3):
-        raw, lo = _window(src, spec, st_e, nb, "cpu")
-        rec_e, st_e = ttrack.track_scan(raw, lo, st_e, chips, spec, nb)
-        rec_g, st_g = graph(raw, lo, st_g)
-        assert st_g is graph.state and raw.shape[0] < graph.capacity
-        assert rec_g.keys() == rec_e.keys()
-        for f in rec_e:
-            assert torch.equal(rec_g[f], rec_e[f]), f
-        for f, a, b in zip(st_e._fields, st_g, st_e):
-            assert a.dtype == b.dtype and torch.equal(a, b), f
-        assert int(rec_g["fault"][0]) == 0
+    try:
+        for _ in range(3):
+            raw, lo = feed.next(st_e.ptr, nb, nb)
+            rec_e, st_e = ttrack.track_scan(raw, lo, st_e, chips, spec, nb)
+            rec_g, st_g = graph(raw, lo, st_g, chips, spec, nb)
+            assert graph.graph is None and graph.held == 0
+            assert st_g is graph.state and raw.shape[0] < graph.capacity
+            assert rec_g.keys() == rec_e.keys()
+            for f in rec_e:
+                assert torch.equal(rec_g[f], rec_e[f]), f
+            for f, a, b in zip(st_e._fields, st_g, st_e):
+                assert a.dtype == b.dtype and torch.equal(a, b), f
+            assert int(rec_g["fault"][0]) == 0
+    finally:
+        feed.close()
     slow = st_e._replace(code_freq=st_e.code_freq * torch.tensor(
         [1.0, 0.7, 1.0], dtype=torch.float64))
     raw, lo = _window(src, spec, slow, nb, "cpu")
     rec_e, _ = ttrack.track_scan(raw, lo, slow, chips, spec, nb)
-    rec_g, _ = graph(raw, lo, slow)
+    rec_g, _ = graph(raw, lo, slow, chips, spec, nb)
     assert int(rec_g["fault"][0]) == int(rec_e["fault"][0]) == 2
     with pytest.raises(RuntimeError, match="channel 1"):
         tc.raise_on_fault(rec_g)
     raw, lo = _window(src, spec, st_e, nb, "cpu")
-    assert int(graph(raw, lo, st_e)[0]["fault"][0]) == 0
-    with pytest.raises(ValueError, match="does not fit"):
-        graph(*_window(src, spec, st_e, nb, "cpu", extra=graph.capacity),
-              st_e)
+    assert int(graph(raw, lo, st_e, chips, spec, nb)[0]["fault"][0]) == 0
+    cap = graph.capacity
+    raw, lo = _window(src, spec, st_e, nb, "cpu", extra=cap)
+    rec_g, st_g = graph(raw, lo, st_e, chips, spec, nb)
+    rec_e, st_e = ttrack.track_scan(raw, lo, st_e, chips, spec, nb)
+    assert graph.capacity == raw.shape[0] + feed.slack > cap
+    for f in rec_e:
+        assert torch.equal(rec_g[f], rec_e[f]), f
+    for f, a, b in zip(st_e._fields, st_g, st_e):
+        assert torch.equal(a, b), f
 
 
 def test_graphed_scan_captures_once_a_call():
-    """`run_tracking`'s graph-route tracker, driven here over the chunks
-    of a call (on the CPU its `ScanGraph` runs eagerly): one
+    """A `ScanGraph` driven over a call's chunks as `run_tracking` drives
+    it, from a `ChunkFeed` (on the CPU it runs eagerly): one
     `tracking.capture` of the first chunk's blocks, a `tracking.replay`
     for each full chunk, the short last chunk eager through `track_scan`,
     a window past the buffer captured again; records and end state those
@@ -967,7 +1005,6 @@ def test_graphed_scan_captures_once_a_call():
     chips = chip_tables(prns, "cpu")
     per, n_blocks = G_CHUNK_MS // 10, G_MS // 10
     want, _ = _eager_chunks(src, spec, st, chips, n_blocks, per)
-    scan = ttrack._GraphedScan(cfg.signal.samples_per_ms)
     calls = {"eager": 0}
     real = ttrack.track_scan
 
@@ -975,24 +1012,30 @@ def test_graphed_scan_captures_once_a_call():
         calls["eager"] += 1
         return real(*a)
 
+    feed = ChunkFeed(src, "cpu", spec.window)
+    scan = ttrack.ScanGraph(feed.slack)
     with profile(activities=[ProfilerActivity.CPU]):
         t0 = time.time_ns()
         got, left, state = [], n_blocks, st
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(ttrack, "track_scan", counted)
-            while left:
-                nb = min(per, left)
-                raw, lo = _window(src, spec, state, nb, "cpu")
-                rec, state = scan(raw, lo, state, chips, spec, nb)
-                got.append({f: v.clone() for f, v in rec.items()})
-                left -= nb
-            first = scan.graph
+            try:
+                while left:
+                    nb = min(per, left)
+                    raw, lo = feed.next(state.ptr, nb,
+                                        min(per, left - nb))
+                    rec, state = scan(raw, lo, state, chips, spec, nb)
+                    got.append({f: v.clone() for f, v in rec.items()})
+                    left -= nb
+            finally:
+                feed.close()
+            first = scan.buf
             # a window larger than the buffer: captured again
             raw, lo = _window(src, spec, st, per, "cpu",
-                              extra=first.capacity)
+                              extra=scan.capacity)
             scan(raw, lo, st, chips, spec, per)
         found = spans.recorded(t0, time.time_ns())
-    assert scan.graph is not first and calls == {"eager": 1}
+    assert scan.buf is not first and calls == {"eager": 1}
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
         for f in w:

@@ -20,9 +20,11 @@ from torch.profiler import ProfilerActivity, profile
 from gps_sdr_tpu_torch import tracking as ttrack
 from gps_sdr_tpu_torch.config import (FileConfig, ReceiverConfig,
                                       SignalConfig)
-from gps_sdr_tpu_torch.io.ifdata import ChunkPrefetcher, IFSampleSource
+from gps_sdr_tpu_torch.io.ifdata import (ChunkFeed, ChunkPrefetcher,
+                                         IFSampleSource, upload_capture)
 from gps_sdr_tpu_torch.io.synthetic import (SyntheticSV, generate_if_samples,
                                             quantize_iq)
+from gps_sdr_tpu_torch.ops.track_chunk import ChunkWindow
 from gps_sdr_tpu_torch.parallel.mesh import Mesh
 from gps_sdr_tpu_torch.utils import spans
 
@@ -292,6 +294,76 @@ def test_chunk_prefetcher_reads_the_next_window_ahead(scene):
     gate.set()
     closer.join(timeout=30)
     assert not closer.is_alive() and calls[-1] == (20, 10, False)
+
+
+class _Reads:
+    """A capture that records every read of it as (start, n)."""
+
+    def __init__(self, src):
+        self.src, self.n_samples, self.reads = src, src.n_samples, []
+
+    def read_iq_values(self, start, n):
+        self.reads.append((start, n))
+        return self.src.read_iq_values(start, n)
+
+
+# the block window at 2.5 MHz (2500 samples a ms): pdi·S + 256 up to 128
+_BLK = {1: 2816, 10: 25344}
+
+
+@pytest.mark.parametrize("case", ["ct", "vt", "last", "resident"])
+def test_chunk_feed_windows_and_reads_ahead(scene, submissions, case):
+    """`ChunkFeed.next` for two chunks: the window from the first pointer
+    to the last plus the need of `nb` blocks (one block window and 64
+    samples past them), read inline; the next chunk's read submitted from
+    2 ms before where the first pointer will be, over the spread, the
+    next need and 2 ms each side, and the second chunk served from it with
+    no other read; a last chunk reads nothing ahead; a resident capture is
+    every chunk from sample 0, with no read at all.  At 10 ms blocks (the
+    eph stage's `ChunkSpec`) and at the VT scan's 1 ms."""
+    cfg, S = scene["cfg"], scene["cfg"].signal.samples_per_ms
+    if case == "vt":
+        from gps_sdr_tpu_torch.receiver.vt import VTParams
+        window = ChunkWindow(S, VTParams().pdi_ms)
+    else:
+        window = ttrack.TrackParams.epl(cfg, pdi_ms=10).chunk_spec(cfg).window
+    pdi = window.pdi_ms
+    assert window.blk == _BLK[pdi]
+    src = _Reads(scene["src"])
+    resident = (upload_capture(scene["src"], "cpu") if case == "resident"
+                else None)
+    nb = CHUNK_MS // pdi
+    nb_next = 0 if case == "last" else nb
+    ptr = scene["state"].ptr + torch.tensor([0, 37])
+    lo, hi = int(ptr.min()), int(ptr.max())
+    feed = ChunkFeed(src, "cpu", window, resident)
+    assert feed.slack == 4 * S
+    try:
+        raw, start = feed.next(ptr, nb, nb_next)
+        if case == "resident":
+            again = feed.next(ptr + nb * pdi * S, nb, 0)
+            assert raw is resident and start == 0
+            assert again[0] is resident and again[1] == 0
+            assert src.reads == [] and submissions == []
+            return
+        need = hi - lo + nb * pdi * S + _BLK[pdi] + 64
+        assert start == lo and raw.shape == (need, 2)
+        assert torch.equal(raw, torch.from_numpy(
+            scene["src"].read_iq_values(lo, need)))
+        ahead = [(lo + nb * pdi * S - 2 * S, need + 4 * S)]
+        if case == "last":
+            assert submissions == [] and src.reads == [(lo, need)]
+            return
+        assert [(a, n) for _, _, a, n in submissions] == ahead
+        moved = ptr + nb * pdi * S + torch.tensor([-9, 14])
+        raw2, start2 = feed.next(moved, nb, 0)
+    finally:
+        feed.close()
+    lo2, hi2 = int(moved.min()), int(moved.max())
+    need2 = hi2 - lo2 + nb * pdi * S + _BLK[pdi] + 64
+    assert start2 == lo2 and torch.equal(raw2, torch.from_numpy(
+        scene["src"].read_iq_values(lo2, need2)))
+    assert src.reads == [(lo, need)] + ahead and len(submissions) == 1
 
 
 def test_spans_stay_out_of_the_profilers_trace(scene):

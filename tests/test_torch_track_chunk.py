@@ -220,7 +220,7 @@ def test_wrapper_routes_cpu_to_plain_and_validates(capture):
     spec = TTrackParams.epl(tcfg).chunk_spec(tcfg)
     chips = chip_tables([sv["prn"] for sv in SVS], "cpu")
     start = int(state.ptr.min())
-    n = int(state.ptr.max()) - start + spec.chunk_samples(10)
+    n = int(state.ptr.max()) - start + spec.window.need(10)
     raw = torch.from_numpy(vals.reshape(-1, 2)[start:start + n].copy())
     before = tc.track_chunk.launches
     rec, _ = tc.track_chunk(raw, start, state, chips, spec, 10)
@@ -292,7 +292,7 @@ def test_cuda_cluster_sizes_agree():
             spec = getattr(TTrackParams, kind)(tcfg).chunk_spec(tcfg)
             spec = spec._replace(remove_dc=remove_dc)
             start = int(state.ptr.min())
-            n = int(state.ptr.max()) - start + spec.chunk_samples(n_steps)
+            n = int(state.ptr.max()) - start + spec.window.need(n_steps)
             raw = torch.as_tensor(src.read_iq_values(start, n)).to(dev)
             got, end = tc.track_chunk(raw, start, state, chips, spec, n_steps)
             one, end1 = tc._track_chunk_cuda(raw, start, state, chips, spec,

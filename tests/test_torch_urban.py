@@ -451,7 +451,7 @@ def _check_urban_kernels(dev):
         start = int(state.ptr.min())
         raw = torch.from_numpy(src.read_iq_values(
             start, int(state.ptr.max()) - start
-            + spec.chunk_samples(n_steps))).to(dev)
+            + spec.window.need(n_steps))).to(dev)
         got, end = tc.track_chunk(raw, start, state, chips, spec, n_steps)
         ref, _ = tc.track_chunk_reference(raw, start, state, chips, spec,
                                           n_steps)
