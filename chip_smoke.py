@@ -441,7 +441,8 @@ def chunk_of(work: dict, kind: str, n_steps: int, dev: torch.device) -> tuple:
     state = init_track_state(cfg, work["code_delays"], work["fine"], dev)
     start = int(state.ptr.min())
     length = int(state.ptr.max()) - start + spec.window.need(n_steps)
-    raw = work["stager"].stage(work["src"].read_iq_values(start, length))
+    stager = work["stager"]
+    raw = stager.stage(stager.read(work["src"], start, length))
     return raw, start, state, spec
 
 
@@ -651,7 +652,8 @@ def phase_bank_vs_plain(dev: torch.device, shared: dict) -> dict:
                   phase_fp=st.phase_fp.to(i64),
                   carr_fp=carr_fp_of(st.carr_freq), num=nominal + jitter)
     start = int(st.ptr.min()) - S
-    raw = shared["stager"].stage(src.read_iq_values(start, 4 * S))
+    stager = shared["stager"]
+    raw = stager.stage(stager.read(src, start, 4 * S))
     dopp = rng.uniform(-5000.0, 5000.0, n)
     code_freq = t(cfg.signal.code_freq_basis * (1 + dopp / cfg.signal.fc),
                   f64)
@@ -841,7 +843,8 @@ def phase_windows_vs_plain(dev: torch.device, shared: dict) -> dict:
         return torch.round(carr_freq / FS * tc.Q32).to(i64)
 
     start = int(st.ptr.min()) - S
-    raw = shared["stager"].stage(src.read_iq_values(start, 14 * S))
+    stager = shared["stager"]
+    raw = stager.stage(stager.read(src, start, 14 * S))
     jitter = t([(i % 5) - 2 for i in range(n)], i64)
     dopp = rng.uniform(-5000.0, 5000.0, n)
     spread_freq = t(cfg.signal.code_freq_basis * (1 + dopp / cfg.signal.fc),
@@ -977,7 +980,8 @@ def phase_both_trackers(dev: torch.device, shared: dict) -> dict:
     spec = TrackParams.epl(cfg, pdi_ms=10, negate_iq=True).chunk_spec(cfg)
     start = int(st.ptr.min())
     length = int(st.ptr.max()) - start + spec.window.need(SCAN_BLOCKS)
-    raw = shared["stager"].stage(src.read_iq_values(start, length))
+    stager = shared["stager"]
+    raw = stager.stage(stager.read(src, start, length))
 
     def scan():
         return tracking.track_scan(raw, start, st, chips, spec, SCAN_BLOCKS)
@@ -2001,8 +2005,8 @@ def _urban_kernels(dev: torch.device, ucfg: ReceiverConfig, src,
         if not spec.remove_dc:
             raise AssertionError("int16 tracking without DC removal")
         start = int(state.ptr.min())
-        raw = stager.stage(src.read_iq_values(
-            start, int(state.ptr.max()) - start
+        raw = stager.stage(stager.read(
+            src, start, int(state.ptr.max()) - start
             + spec.window.need(n_steps)))
         out, end = tc.track_chunk(raw, start, state, chips, spec, n_steps)
         ref, ref_end = tc.track_chunk_reference(raw, start, state, chips,
@@ -2026,7 +2030,7 @@ def _urban_kernels(dev: torch.device, ucfg: ReceiverConfig, src,
             st = end
     i64 = torch.int64
     start = int(st.ptr.min()) - S
-    raw = stager.stage(src.read_iq_values(start, 14 * S))
+    raw = stager.stage(stager.read(src, start, 14 * S))
     jitter = torch.tensor([(i % 5) - 2 for i in range(len(prns))],
                           dtype=i64, device=dev)
 

@@ -16,12 +16,16 @@ to float happens on the device (inside the tracking kernel).  A stage whose
 channels lie far apart in the capture (time-segmented tracking) holds the
 whole capture on the card instead (`upload_capture`), uploaded once through
 a pinned buffer of bounded size.  `ChunkFeed` is the one place a tracking
-call's chunks are windowed, read ahead and staged.
+call's chunks are windowed, read ahead and staged: on the card each chunk
+is read straight into one of two pinned buffers, used again chunk after
+chunk, and sent to the card from there, so a chunk crosses host memory
+once.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,7 +42,8 @@ class IFSampleSource:
     def __init__(self, path: str, file_cfg: FileConfig):
         self.cfg = file_cfg
         dtype = np.int8 if file_cfg.data_precision == 1 else np.int16
-        self._raw = np.memmap(path, dtype=dtype, mode="r")
+        # copy-on-write, so torch takes the map as it is (nothing writes)
+        self._raw = np.memmap(path, dtype=dtype, mode="c")
         self.n_samples = self._raw.size // file_cfg.values_per_sample
 
     @classmethod
@@ -87,29 +92,35 @@ class IFSampleSource:
         self.read_iq_into(start_sample, out)
         return out
 
-    def read_iq_into(self, start_sample: int, out: np.ndarray) -> None:
-        """Fill `out`, an (n, 2) array of the capture's dtype, with the IQ
-        values of samples [start, start+n) (zeros outside the capture),
-        without an intermediate copy."""
-        n = out.shape[0]
+    def read_iq_into(self, start_sample: int, out) -> None:
+        """Fill `out`, an (n, 2) array or CPU tensor of the capture's
+        dtype, with the IQ values of samples [start, start+n) (zeros
+        outside the capture), without an intermediate copy.  Torch copies
+        them on its intra-op threads, faster on a host of several cores
+        than numpy's copy on one."""
+        dst = torch.as_tensor(out)
+        n = dst.shape[0]
         lo = min(max(start_sample, 0), start_sample + n)
         hi = max(min(start_sample + n, self.n_samples), lo)
-        out[:lo - start_sample] = 0
-        out[hi - start_sample:] = 0
-        inner = out[lo - start_sample:hi - start_sample]
+        dst[:lo - start_sample] = 0
+        dst[hi - start_sample:] = 0
+        inner = dst[lo - start_sample:hi - start_sample]
         if self.cfg.data_type == 2:
-            inner.reshape(-1)[:] = self._raw[2 * lo:2 * hi]
+            inner.view(-1).copy_(torch.from_numpy(self._raw[2 * lo:2 * hi]))
         else:
-            inner[:, 0] = self._raw[lo:hi]
+            inner[:, 0].copy_(torch.from_numpy(self._raw[lo:hi]))
             inner[:, 1] = 0
 
 
 class PinnedRing:
     """Two pinned host buffers, handed out in turn, for host→device copies
-    with `non_blocking=True`: a buffer is handed out again only after the
-    copy that read it has completed (an event per buffer), so the host can
-    fill one while the card reads the other.  A buffer grows to `slack`
-    times the largest piece asked of it."""
+    with `non_blocking=True`: `take` hands a buffer out again only after
+    the copy that last read it has completed (the event `sent` recorded
+    for it; the wait is the span `io.ring_wait`), so the host can fill one
+    while the card reads the other.  A buffer grows to `slack` times the
+    largest piece asked of it.  One thread may take and fill a buffer
+    while another sends the one filled before: `take` touches only the
+    buffer it hands out, `sent` only its piece's (found by its storage)."""
 
     def __init__(self, device: torch.device, slack: float = 1.0):
         self.device = torch.device(device)
@@ -119,9 +130,11 @@ class PinnedRing:
         self._next = 0
 
     def take(self, shape, dtype: torch.dtype) -> torch.Tensor:
-        """A pinned host tensor of `shape`, free to be filled; pass it to
-        `sent` once its copy to the device is queued."""
+        """A pinned host tensor of `shape` at the head of the next buffer,
+        free to be filled; pass it, or a piece of it, to `sent` once its
+        copy to the device is queued."""
         i = self._next
+        self._next ^= 1
         if self._events[i] is not None:
             with span("io.ring_wait"):
                 self._events[i].synchronize()
@@ -133,17 +146,32 @@ class PinnedRing:
             self._bufs[i] = buf
         return buf[:n].view(shape)
 
-    def sent(self) -> None:
-        """The copy from the buffer `take` last gave is queued: record its
-        event and move to the other buffer."""
+    def sent(self, piece: torch.Tensor) -> None:
+        """The copy from `piece`, a tensor `take` gave or a piece of one,
+        is queued: record its buffer's event."""
+        ptr = piece.untyped_storage().data_ptr()
+        i = next(i for i, buf in enumerate(self._bufs) if buf is not None
+                 and buf.untyped_storage().data_ptr() == ptr)
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
-        self._events[self._next] = ev
-        self._next ^= 1
+        self._events[i] = ev
 
 
 # pinned host memory of a resident upload: two pieces of this many bytes
 UPLOAD_PIECE_BYTES = 128 << 20
+
+
+def _iq_dtype(source: IFSampleSource) -> torch.dtype:
+    return torch.int8 if source.cfg.data_precision == 1 else torch.int16
+
+
+def read_pinned(ring: PinnedRing, source: IFSampleSource, start: int,
+                n: int) -> torch.Tensor:
+    """Samples [start, start+n) of `source` as (n, 2) raw IQ values, read
+    straight into the next buffer of `ring` (`read_iq_into`)."""
+    host = ring.take((n, 2), _iq_dtype(source))
+    source.read_iq_into(start, host)
+    return host
 
 
 def upload_capture(source: IFSampleSource, device) -> torch.Tensor:
@@ -160,15 +188,13 @@ def upload_capture(source: IFSampleSource, device) -> torch.Tensor:
     n = source.n_samples
     if device.type != "cuda":
         return torch.from_numpy(source.read_iq_values(0, n)).to(device)
-    dtype = torch.int8 if source.cfg.data_precision == 1 else torch.int16
-    out = torch.empty((n, 2), dtype=dtype, device=device)
+    out = torch.empty((n, 2), dtype=_iq_dtype(source), device=device)
     rows = max(1, UPLOAD_PIECE_BYTES // (2 * out.element_size()))
     ring = PinnedRing(device)
     for lo in range(0, n, rows):
-        host = ring.take((min(rows, n - lo), 2), dtype)
-        source.read_iq_into(lo, host.numpy())
+        host = read_pinned(ring, source, lo, min(rows, n - lo))
         out[lo:lo + host.shape[0]].copy_(host, non_blocking=True)
-        ring.sent()
+        ring.sent(host)
     torch.cuda.current_stream(device).synchronize()
     return out
 
@@ -181,9 +207,15 @@ class ChunkPrefetcher:
     the pending read when it holds them (a miss reads inline), and before
     returning submits the read of `then`, the next chunk's (start, n), to
     a thread of its own: that read runs while the caller stages the
-    chunk, issues its tracker and waits for its records.  A read returns
-    an array of its own, so the view `fetch` returned stays valid while
-    the next read runs.  The span `io.fetch` is the caller's wait,
+    chunk, issues its tracker and waits for its records.  The view
+    `fetch` returns lies in what `read_fn` returned: for
+    `source.read_iq_values` an array of its own; for `DeviceStager.read`
+    on a CUDA device a buffer of a two-buffer `PinnedRing`, which the
+    read the next fetch submits fills again (for the fetch after next)
+    once the copy that last read it has completed.  So such a view holds
+    until the next fetch, and a copy of it queued before then reads it
+    whole.  The span
+    `io.fetch` is the caller's wait,
     `io.read` each read (on the prefetch thread, or inside `io.fetch` on
     a miss)."""
 
@@ -192,7 +224,7 @@ class ChunkPrefetcher:
         self._pool = ThreadPoolExecutor(1)
         self._pending = None       # (start, n, future)
 
-    def _read(self, start: int, n: int) -> np.ndarray:
+    def _read(self, start: int, n: int):
         with span("io.read", n):
             return self._read_fn(start, n)
 
@@ -200,7 +232,7 @@ class ChunkPrefetcher:
         self._pending = (start, n, self._pool.submit(self._read, start, n))
 
     def fetch(self, start: int, n: int,
-              then: Optional[Tuple[int, int]] = None) -> np.ndarray:
+              then: Optional[Tuple[int, int]] = None):
         with span("io.fetch", n):
             arr = None
             if self._pending is not None:
@@ -223,26 +255,37 @@ class ChunkPrefetcher:
 
 
 class DeviceStager:
-    """Host→device staging of raw IQ chunks.
+    """Host→device staging of raw IQ chunks: `stage(read(source, start,
+    n))`.
 
-    On a CUDA device each chunk is copied into a buffer of a `PinnedRing`
-    (grown with a quarter of slack, as chunk windows vary a little) and
-    sent with `non_blocking=True`, so the host can fill the next chunk
-    while the card works.  On the CPU the chunk is wrapped as it is."""
+    On a CUDA device `read` fills the next buffer of the stager's
+    `PinnedRing` (grown with a quarter of slack, as chunk windows vary a
+    little; a refill waits for the copy that last read the buffer), and
+    `stage` sends what `read` gave, or a piece of it, from that buffer
+    with `non_blocking=True` (span `io.pinned`, n its bytes) and records
+    the buffer's event, so the host can fill the other buffer while the
+    card works; each chunk comes back as a device tensor of its own.  On
+    the CPU `read` returns an array of its own and `stage` wraps it."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self._ring = PinnedRing(self.device, slack=1.25)
 
-    def stage(self, values: np.ndarray) -> torch.Tensor:
+    def read(self, source: IFSampleSource, start: int, n: int):
+        """Samples [start, start+n) of `source` as (n, 2) raw IQ values,
+        to be staged."""
+        if self.device.type != "cuda":
+            return source.read_iq_values(start, n)
+        return read_pinned(self._ring, source, start, n)
+
+    def stage(self, values) -> torch.Tensor:
         with span("io.stage", values.nbytes):
-            host = torch.from_numpy(np.ascontiguousarray(values))
             if self.device.type != "cuda":
-                return host.to(self.device)
-            pinned = self._ring.take(host.shape, host.dtype)
-            pinned.copy_(host)
-            out = pinned.to(self.device, non_blocking=True)
-            self._ring.sent()
+                return torch.from_numpy(
+                    np.ascontiguousarray(values)).to(self.device)
+            with span("io.pinned", values.nbytes):
+                out = values.to(self.device, non_blocking=True)
+                self._ring.sent(values)
             return out
 
 
@@ -261,7 +304,12 @@ class ChunkFeed:
     and staged through a `DeviceStager`.  The fetch submits the read of
     the next chunk, `nb_next` blocks (none when 0), from the current
     pointers alone and `DRIFT_MARGIN_MS` wider each side than it needs,
-    so only a call's first fetch reads inline.  With `resident` (the
+    so only a call's first fetch reads inline.  Every read, ahead or
+    inline, is the stager's `read`: on a CUDA device it goes straight
+    into the next buffer of the stager's pinned ring (a refill waits on
+    the prefetch thread for the copy that last read the buffer), and the
+    stager sends the chunk from there: the pinned memory is the ring's two
+    buffers, and no chunk is copied on the host again.  With `resident` (the
     capture on the device, `upload_capture`) every chunk is that tensor
     from sample 0, with no read and no staging.  `slack`, the two margins,
     is the room a `tracking.ScanGraph` buffer adds to its first window."""
@@ -279,8 +327,9 @@ class ChunkFeed:
         self._margin = DRIFT_MARGIN_MS * window.samples_per_ms
         self.slack = 2 * self._margin
         if resident is None:
-            self._prefetcher = ChunkPrefetcher(source.read_iq_values)
             self._stager = DeviceStager(device)
+            self._prefetcher = ChunkPrefetcher(
+                partial(self._stager.read, source))
 
     def next(self, ptr: torch.Tensor, nb: int, nb_next: int
              ) -> Tuple[torch.Tensor, int]:

@@ -313,7 +313,8 @@ def windows_args(work: dict, state, pdi: int, dev) -> tuple:
     S = cfg.signal.samples_per_ms
     blk = -(-(pdi * S + 256) // 128) * 128
     start = int(state.ptr.min())
-    raw = work["stager"].stage(work["src"].read_iq_values(start, blk + 2 * S))
+    stager = work["stager"]
+    raw = stager.stage(stager.read(work["src"], start, blk + 2 * S))
     num = torch.ceil((1023.0 * pdi - state.rem_chip)
                      / (state.code_freq / cs.FS)).to(torch.int64)
     carr_fp = torch.round(state.carr_freq / cs.FS * tc.Q32).to(torch.int64)
@@ -332,7 +333,8 @@ def bank_args(work: dict, state, dev, channels: int = 8) -> tuple:
     S = cfg.signal.samples_per_ms
     blk = -(-(S + 256) // 128) * 128
     start = int(state.ptr.min())
-    raw = work["stager"].stage(work["src"].read_iq_values(start, 3 * S))
+    stager = work["stager"]
+    raw = stager.stage(stager.read(work["src"], start, 3 * S))
     n = state.ptr.shape[0]
     idx = torch.arange(channels, device=dev) % n
     ptr = state.ptr[idx] + 1000 * (torch.arange(channels, device=dev) // n)

@@ -11,6 +11,7 @@ names, parents, threads and the work each span covers.
 
 import threading
 import time
+from functools import partial
 
 import numpy as np
 import pytest
@@ -21,7 +22,8 @@ from gps_sdr_tpu_torch import tracking as ttrack
 from gps_sdr_tpu_torch.config import (FileConfig, ReceiverConfig,
                                       SignalConfig)
 from gps_sdr_tpu_torch.io.ifdata import (ChunkFeed, ChunkPrefetcher,
-                                         IFSampleSource, upload_capture)
+                                         DeviceStager, IFSampleSource,
+                                         upload_capture)
 from gps_sdr_tpu_torch.io.synthetic import (SyntheticSV, generate_if_samples,
                                             quantize_iq)
 from gps_sdr_tpu_torch.ops.track_chunk import ChunkWindow
@@ -250,13 +252,27 @@ def test_run_tracking_reads_ahead_of_the_tracker(scene, submissions, pdi_ms):
         assert torch.equal(a, b)
 
 
-def test_chunk_prefetcher_reads_the_next_window_ahead(scene):
+@pytest.mark.parametrize("route", [
+    "array", pytest.param("pinned", marks=pytest.mark.gpu)])
+def test_chunk_prefetcher_reads_the_next_window_ahead(scene, route):
     """`fetch` with a next window returns what a fetch without one
     returns and leaves that window's read running on the prefetch thread;
-    the next fetch inside it is served from it, and the view it returned
-    before still holds its samples; a fetch outside it reads inline;
-    `close` waits for a read still pending."""
+    the next fetch inside it is served from it; a fetch outside it reads
+    inline; `close` waits for a read still pending.  A read into an array
+    of its own (the CPU's feed) leaves a view holding its samples after
+    later fetches, and so does the view of the read before it.  A read
+    into the two-buffer `PinnedRing` of a `DeviceStager` (the card's
+    feed, `DeviceStager.read`) holds a view until the next fetch, whose
+    read fills its buffer again for the fetch after next, and only once
+    the copy queued from it (held back here behind a sleep on the
+    stream) has read it whole."""
     src = scene["src"]
+    read_into = src.read_iq_values
+    if route == "pinned":
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        stager = DeviceStager("cuda")
+        read_into = partial(stager.read, src)
     gate, started = threading.Event(), threading.Semaphore(0)
     calls, main = [], threading.get_ident()
 
@@ -265,24 +281,35 @@ def test_chunk_prefetcher_reads_the_next_window_ahead(scene):
         if threading.get_ident() != main:
             started.release()
             assert gate.wait(timeout=30)
-        return src.read_iq_values(start, n)
+        return read_into(start, n)
 
     pf = ChunkPrefetcher(read)
     plain = pf.fetch(100, 50)
+    if route == "pinned":        # its buffer is filled again below
+        plain = np.array(plain)
     a = pf.fetch(100, 50, then=(140, 60))
     assert started.acquire(timeout=30)      # running, held at the gate
     np.testing.assert_array_equal(a, plain)
     np.testing.assert_array_equal(a, src.read_iq_values(100, 50))
     assert calls == [(100, 50, True), (100, 50, True), (140, 60, False)]
+    if route == "pinned":
+        torch.cuda._sleep(200_000_000)
+        sent = stager.stage(a)
     gate.set()
     b = pf.fetch(150, 40, then=(185, 30))
     np.testing.assert_array_equal(b, src.read_iq_values(150, 40))
     assert started.acquire(timeout=30)
-    np.testing.assert_array_equal(a, plain)
+    if route == "array":
+        np.testing.assert_array_equal(a, plain)
     assert calls[3:] == [(185, 30, False)]
     c = pf.fetch(300, 10)
     np.testing.assert_array_equal(c, src.read_iq_values(300, 10))
     assert calls[4:] == [(300, 10, True)]
+    if route == "array":
+        np.testing.assert_array_equal(a, plain)
+    else:
+        assert torch.equal(sent.cpu(), torch.from_numpy(plain))
+        np.testing.assert_array_equal(a[:30], src.read_iq_values(185, 30))
 
     gate.clear()
     pf.fetch(0, 10, then=(20, 10))
@@ -297,14 +324,21 @@ def test_chunk_prefetcher_reads_the_next_window_ahead(scene):
 
 
 class _Reads:
-    """A capture that records every read of it as (start, n)."""
+    """A capture that records every read of it as (start, n), into an
+    array of its own (`read_iq_values`) or into the caller's
+    (`read_iq_into`, as the card's feed reads into its pinned ring)."""
 
     def __init__(self, src):
-        self.src, self.n_samples, self.reads = src, src.n_samples, []
+        self.src, self.cfg, self.n_samples = src, src.cfg, src.n_samples
+        self.reads = []
 
     def read_iq_values(self, start, n):
         self.reads.append((start, n))
         return self.src.read_iq_values(start, n)
+
+    def read_iq_into(self, start, out):
+        self.reads.append((start, out.shape[0]))
+        self.src.read_iq_into(start, out)
 
 
 # the block window at 2.5 MHz (2500 samples a ms): pdi·S + 256 up to 128
@@ -364,6 +398,94 @@ def test_chunk_feed_windows_and_reads_ahead(scene, submissions, case):
     assert start2 == lo2 and torch.equal(raw2, torch.from_numpy(
         scene["src"].read_iq_values(lo2, need2)))
     assert src.reads == [(lo, need)] + ahead and len(submissions) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", [1, 2])
+def test_cuda_chunk_feed_reads_into_the_pinned_ring(monkeypatch, precision):
+    """On the card, `ChunkFeed` over an int8 and an int16 IQ capture, six
+    chunks of 10 ms blocks: the first read inline, full chunks served
+    from the read ahead, a read-ahead miss (the pointers jump past the
+    margin) read inline, a short last chunk.  Every read goes through
+    `read_iq_into` over the windows of `test_chunk_feed_windows_and_
+    reads_ahead`; every chunk reaches `stage` as a view of a pinned
+    buffer, of two buffers in all, and is sent from there under one
+    `io.pinned` span of its bytes inside its `io.stage`; every staged
+    chunk equals `read_iq_values` of its window bit for bit.  A copy held
+    back on the stream (a sleep queued before chunk 3 is staged) holds
+    back the refill of its buffer: the read of chunk 5 waits on the
+    prefetch thread under `io.ring_wait`, and chunk 3 arrives whole."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dtype = np.int8 if precision == 1 else np.int16
+    info = np.iinfo(dtype)
+    fcfg = FileConfig(name="ring", skip_ms=0, data_precision=precision)
+    S = 2500
+    values = np.random.default_rng(precision).integers(
+        info.min, info.max, size=2 * 1200 * S, endpoint=True, dtype=dtype)
+    base = IFSampleSource.from_array(values, fcfg)
+    src = _Reads(base)
+    window = ChunkWindow(S, 10)
+    nb, short = 4, 2
+    feed = ChunkFeed(src, "cuda", window)
+    margin = feed.slack // 2
+    staged = []
+    stage = DeviceStager.stage
+
+    def recorded(self, values):
+        staged.append((values.untyped_storage().data_ptr(),
+                       values.is_pinned(), values.nbytes))
+        return stage(self, values)
+
+    monkeypatch.setattr(DeviceStager, "stage", recorded)
+    ptr = torch.tensor([300 * S, 300 * S + 37], dtype=torch.int64)
+    # (pointer move before the chunk, blocks, blocks of the next)
+    plan = [(0, nb, nb), (nb * window.step + 11, nb, nb),
+            (nb * window.step + 50 * S, nb, nb),
+            (nb * window.step - 7, nb, nb), (nb * window.step, nb, short),
+            (nb * window.step + 3, short, 0)]
+    windows, ahead, got = [], [], []
+    with profile(activities=[ProfilerActivity.CPU]):
+        t0 = time.time_ns()
+        try:
+            for k, (move, n, n_next) in enumerate(plan):
+                ptr = ptr + move
+                lo, hi = int(ptr.min()), int(ptr.max())
+                windows.append((lo, hi - lo + window.need(n)))
+                if n_next:
+                    ahead.append((lo + n * window.step - margin,
+                                  hi - lo + window.need(n_next) + feed.slack))
+                if k == 3:
+                    torch.cuda._sleep(500_000_000)
+                raw, start = feed.next(ptr, n, n_next)
+                assert start == lo and raw.device.type == "cuda"
+                got.append(raw)
+        finally:
+            feed.close()
+        torch.cuda.synchronize()
+        found = spans.recorded(t0, time.time_ns())
+    # inline: the first chunk and the miss (chunk 2); the rest served from
+    # the read ahead the chunk before submitted
+    assert src.reads == [windows[0], ahead[0], ahead[1], windows[2]] + ahead[2:]
+    for raw, (lo, n) in zip(got, windows):
+        assert raw.dtype == torch.from_numpy(values[:0]).dtype
+        assert torch.equal(raw.cpu(), torch.from_numpy(
+            base.read_iq_values(lo, n))), lo
+    assert all(p for _, p, _ in staged)
+    assert len({a for a, _, _ in staged}) == 2
+    ids = by_id(found)
+    stages = sorted((s for s in found if s.name == "io.stage"),
+                    key=lambda s: s.start_ns)
+    pinned = sorted((s for s in found if s.name == "io.pinned"),
+                    key=lambda s: s.start_ns)
+    assert len(stages) == len(pinned) == len(plan)
+    assert all(ids[p.parent].name == "io.stage" for p in pinned)
+    assert [p.n for p in pinned] == [s.n for s in stages] == [
+        b for _, _, b in staged] == [r.nbytes for r in got]
+    main = threading.get_ident()
+    waits = [s for s in found if s.name == "io.ring_wait"
+             and s.thread != main and s.end_ns - s.start_ns > 50_000_000]
+    assert len(waits) == 1 and ids[waits[0].parent].name == "io.read"
 
 
 def test_spans_stay_out_of_the_profilers_trace(scene):
